@@ -1,14 +1,26 @@
-"""Carry retriever weights between the JAX package's pytree and the port.
+"""Carry weights between the JAX package's pytrees and the port.
 
-The JAX retriever's parameters are ``{"query": tower, "passage": tower}``
+Retriever. The JAX retriever's parameters are ``{"query": tower, "passage": tower}``
 (untied) or ``{"shared": tower}`` (tied), each tower
 ``{"embed": {name: array}, "layers": [{name: array}, ...]}`` with (in, out)
 weight layout. The port's ``DualEncoderRetriever`` state dict uses the same
 names as dotted paths (``query.embed.word``, ``passage.layers.3.q_w``), so
 conversion is a rename, never a transpose. Arrays travel as numpy.
+
+Generator and LoRA. The port's LM (``models/lm.py``) takes the JAX tree's
+structure as it is — ``{"embed", "final_norm", "lm_head", "layers": [...]}``
+and ``{"layers": [{name: {"A", "B"}}]}`` — with torch leaves, so conversion
+maps leaves and keeps the key names and (in, out) layouts.
+
+Demo artifacts. ``load_demo_artifacts`` reads the committed hard-copy
+encoder and generator pickles (numpy fp16 leaves + a SimpleTokenizer vocab),
+the counterpart of ``scripts/pretrain_hard_encoder.py:37-53`` and
+``scripts/pretrain_copy_generator.py:30-43``, which import JAX.
 """
 
 from __future__ import annotations
+
+import pickle
 
 import numpy as np
 import torch
@@ -58,3 +70,64 @@ def retriever_params_to_numpy(state) -> dict:
 
 def _tensor(v) -> torch.Tensor:
     return torch.from_numpy(np.array(v, dtype=np.float32))
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def lm_params_from_numpy(tree: dict, device="cpu") -> dict:
+    """JAX generator pytree (numpy or array-like leaves) -> the port's
+    parameter dict of f32 tensors on ``device``."""
+    if any("qkv_w" in layer for layer in tree["layers"]):
+        raise NotImplementedError("gpt2 generator trees are not ported yet: "
+                                  "ROADMAP queue A item 12")
+    return _map_tree(tree, lambda v: _tensor(v).to(device))
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """The port's generator (or LoRA) dict -> a JAX pytree of f32 numpy
+    arrays."""
+    return _map_tree(
+        params, lambda v: v.detach().to(torch.float32).cpu().numpy())
+
+
+def lora_params_from_numpy(tree: dict, device="cpu") -> dict:
+    """JAX LoRA tree ``{"layers": [{name: {"A", "B"}}]}`` -> the port's, f32
+    tensors on ``device``."""
+    if set(tree) != {"layers"}:
+        raise ValueError(f"LoRA tree keys must be ['layers'], got "
+                         f"{sorted(tree)}")
+    return _map_tree(tree, lambda v: _tensor(v).to(device))
+
+
+def load_demo_artifacts(encoder_path: str, generator_path: str,
+                        device="cpu"):
+    """The committed hard-copy demo pickles -> (retriever, generator config,
+    generator params, tokenizer): a tied ``DualEncoderRetriever`` in f32 on
+    ``device``, the ``LMConfig`` at f32, its f32 params, and the shared
+    ``SimpleTokenizer`` restored from the generator's vocab (both pickles
+    carry the same one)."""
+    from .data.tokenizer import SimpleTokenizer
+    from .models.bert import BertConfig
+    from .models.lm import LMConfig
+    from .models.retriever import DualEncoderRetriever, RetrieverConfig
+
+    with open(encoder_path, "rb") as f:
+        enc = pickle.load(f)
+    with open(generator_path, "rb") as f:
+        gen = pickle.load(f)
+    # the port's encoder is inference-only: no remat or dropout fields
+    bert = BertConfig(**{k: v for k, v in enc["bert"].items()
+                         if k not in ("remat", "dropout")})
+    retriever = DualEncoderRetriever(RetrieverConfig(bert=bert, tied=True),
+                                     device=device)
+    retriever.load_state_dict(retriever_params_from_numpy(enc["params"]))
+    lm_cfg = LMConfig(dtype=torch.float32, **gen["lm"])
+    return (retriever.eval(), lm_cfg,
+            lm_params_from_numpy(gen["params"], device),
+            SimpleTokenizer.from_dict(gen["vocab"]))

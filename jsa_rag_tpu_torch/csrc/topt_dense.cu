@@ -1,0 +1,372 @@
+// Dense (bf16 / f32 storage) scan with per-tile top-T emit, for Hopper
+// (sm_90a).
+//
+// Replaces jsa_rag_tpu/ops/mips_pallas2.py::_topt_kernel_t (:176-200) with
+// its epilogue _emit_topt (:32-49): the scan behind every --index_dtype
+// bfloat16|float32 flat index (mips_topk_pallas2_t, :203-292, reached from
+// ops/mips.py::mips_topk_t).
+//
+// What it computes, for every query row q and every tile of TILE_N index rows:
+//   s[q, n] = sum_i q[q, i] * x[n, i]                    (f32 accumulate)
+//   s[q, n] = NEG_INF for n >= n_valid (runtime valid count)
+// then T extract-max passes per (q, tile) (topt_emit.cuh): the tile's top-T as
+// (score, global id), ties to the lower column, id -1 once the tile is
+// exhausted. Output layout (n_tiles, b, T), as in the JAX package.
+//
+// Precision. The JAX/CPU reference multiplies the f32 query by the stored
+// rows in f32.
+// - bf16 rows: a bf16 query would lose ~8 bits, so the wrapper splits it on
+//   the host side into q_hi = bf16(q) and q_lo = bf16(q - q_hi) (the hi/lo
+//   split of mips_pallas2.py::_split_hilo_bf16, :296-308, rounded rather than
+//   truncated). Both planes are the 64 rows of the A operand; each B fragment
+//   of the index feeds mma.sync.m16n8k16 bf16 -> f32 for both, and the two
+//   sums are added in registers. A bf16 x bf16 product is exact in f32, so
+//   what is left is the lo plane's rounding, <= 2^-18 |q_i| per term, i.e.
+//   <= 2^-18 * sum_i |q_i x_i| ~ 4e-6 for unit rows, plus the f32 sums'
+//   ordering.
+// - f32 rows: a plain SIMT f32 FMA loop (no TF32, which keeps ~3 digits).
+//
+// Layout: rows are row-major (N, d), the on-disk layout, K-contiguous for
+// mma.sync's "row.col" form (the TPU wanted (d, N) for its MXU).
+//
+// Bound (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16 dense) at the evaluate path's
+// full-width shape N = 1,300,480, d = 1024, bf16: the index is read once,
+// 2.66 GB -> 0.80 ms; the two bf16 products are 4*B*N*d operations -> 2.8 ms
+// at B = 512. So the scan is bound by bytes below B ~ 150 and by operations
+// above it.
+//
+// Design, simple and right first (the bf16 scan follows topt_int8r2.cu):
+// - blocks run independently over (query tile of 32 rows, index tile of
+//   TILE_N rows) on a one-dimensional grid, the query tile moving fastest so
+//   the blocks that read one index tile run together and share it through
+//   L2; query rows past b are zero-filled and never emitted (B = 8 runs in
+//   one 32-row tile);
+// - d streams through shared memory in 128-byte chunks, double-buffered with
+//   cp.async (zero-filled past d and past the last row); rows are padded to
+//   144 bytes so the 32-bit fragment loads are free of bank conflicts;
+// - 8 warps (2 along queries x 4 along columns); the fragment byte offsets
+//   of m16n8k16 bf16 equal those of B1's m16n8k32 s8, so the staging and
+//   the fragment loads are B1's;
+// - the f32 scan stages a (32-float chunk of d) x TILE_N slab k-major in
+//   shared memory and gives each thread a 4 x 8 block of (query, column)
+//   cells;
+// - scores go to shared memory and the shared emit runs one warp per row.
+// wgmma/TMA, a persistent schedule and ldmatrix fragment loads are later work.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "topt_emit.cuh"
+
+namespace {
+
+using topt::cp_async16;
+using topt::cp_async_commit;
+using topt::cp_async_wait_1;
+using topt::NEG_INF;
+
+constexpr int TQ = 32;        // queries per block (hi + lo -> 64 A rows)
+constexpr int KC = 128;       // bytes of d per pipeline stage (64 bf16)
+constexpr int ROW = KC + 16;  // padded shared-memory row stride in bytes
+constexpr int THREADS = 256;  // 8 warps
+
+template <int TILE_N>
+struct Smem {
+  static constexpr int A_BYTES = 2 * TQ * ROW;
+  static constexpr int E_BYTES = TILE_N * ROW;
+  static constexpr int STAGE = A_BYTES + E_BYTES;
+  static constexpr int SROW = TILE_N + 8;  // score row stride in floats
+  static constexpr int SCORES = TQ * SROW * 4;
+  static constexpr int TOTAL = (2 * STAGE > SCORES) ? 2 * STAGE : SCORES;
+};
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// qh, ql: (b, d) bf16 bits; emb: (n_rows, d) bf16 bits.
+template <int TILE_N>
+__global__ void __launch_bounds__(THREADS, 2)
+topt_dense_bf16_kernel(const unsigned char* __restrict__ qh,
+                       const unsigned char* __restrict__ ql,
+                       const unsigned char* __restrict__ emb, int b, int d,
+                       int n_rows, int n_valid, int t_per_tile, int q_tiles,
+                       float* __restrict__ out_s, int* __restrict__ out_i) {
+  using S = Smem<TILE_N>;
+  constexpr int WN = TILE_N / 4;  // columns per warp
+  constexpr int NT8 = WN / 8;     // n8 mma tiles per warp
+  constexpr int SEGS = KC / 16;   // 16-byte segments per staged row
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int q0 = (blockIdx.x % q_tiles) * TQ;
+  const int nt = blockIdx.x / q_tiles;
+  const int n0 = nt * TILE_N;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 1;   // which 16 queries of the tile
+  const int wn = warp >> 1;  // which quarter of the columns
+  const int gid = lane >> 2, tig = lane & 3;
+  const int row_bytes = 2 * d;
+
+  float acc[2][NT8][4];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int j = 0; j < NT8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[p][j][e] = 0.f;
+
+  auto load_stage = [&](int chunk, int stage) {
+    unsigned char* a_s = smem + stage * S::STAGE;
+    unsigned char* e_s = a_s + S::A_BYTES;
+    const int k0 = chunk * KC;
+    for (int i = tid; i < 2 * TQ * SEGS; i += THREADS) {
+      const int r = i / SEGS, seg = i % SEGS;
+      const int q = q0 + (r % TQ), k = k0 + seg * 16;
+      const unsigned char* base = r < TQ ? qh : ql;
+      const bool ok = q < b && k < row_bytes;
+      cp_async16(a_s + r * ROW + seg * 16,
+                 ok ? base + (size_t)q * row_bytes + k : base, ok);
+    }
+    for (int i = tid; i < TILE_N * SEGS; i += THREADS) {
+      const int r = i / SEGS, seg = i % SEGS;
+      const int n = n0 + r, k = k0 + seg * 16;
+      const bool ok = n < n_rows && k < row_bytes;
+      cp_async16(e_s + r * ROW + seg * 16,
+                 ok ? emb + (size_t)n * row_bytes + k : emb, ok);
+    }
+  };
+
+  const int n_chunks = (row_bytes + KC - 1) / KC;
+  load_stage(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks) load_stage(c + 1, (c + 1) & 1);
+    cp_async_commit();  // an empty group on the last chunk keeps counts even
+    cp_async_wait_1();
+    __syncthreads();
+    const unsigned char* a_s = smem + (c & 1) * S::STAGE;
+    const unsigned char* e_s = a_s + S::A_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 32) {  // 32 bytes = one k16 step
+      unsigned a[2][4];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const unsigned char* ar =
+            a_s + (p * TQ + wm * 16 + gid) * ROW + kk + tig * 4;
+        a[p][0] = *reinterpret_cast<const unsigned*>(ar);
+        a[p][1] = *reinterpret_cast<const unsigned*>(ar + 8 * ROW);
+        a[p][2] = *reinterpret_cast<const unsigned*>(ar + 16);
+        a[p][3] = *reinterpret_cast<const unsigned*>(ar + 8 * ROW + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) {
+        const unsigned char* br =
+            e_s + (wn * WN + j * 8 + gid) * ROW + kk + tig * 4;
+        const unsigned b0 = *reinterpret_cast<const unsigned*>(br);
+        const unsigned b1 = *reinterpret_cast<const unsigned*>(br + 16);
+        mma_bf16(acc[0][j], a[0], b0, b1);
+        mma_bf16(acc[1][j], a[1], b0, b1);
+      }
+    }
+    __syncthreads();  // the next iteration's load overwrites this stage
+  }
+
+  // scores into shared memory (the stage buffers are free after the loop's
+  // last barrier); fragment cell e of an m16n8 tile sits at row
+  // gid + 8*(e/2), column 2*tig + e%2
+  float* sc = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int ql_row = wm * 16 + gid + 8 * h;
+#pragma unroll
+    for (int j = 0; j < NT8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = wn * WN + j * 8 + tig * 2 + e;
+        sc[ql_row * S::SROW + cl] =
+            n0 + cl < n_valid
+                ? __fadd_rn(acc[0][j][2 * h + e], acc[1][j][2 * h + e])
+                : NEG_INF;
+      }
+    }
+  }
+  __syncthreads();
+  topt::emit_topt<TILE_N, TQ, THREADS>(sc, S::SROW, q0, b, n0, nt,
+                                        t_per_tile, out_s, out_i);
+}
+
+// ----------------------------------------------------------------- f32 rows
+constexpr int FK = 32;  // floats of d per stage
+
+template <int TILE_N>
+struct SmemF32 {
+  static constexpr int EROW = TILE_N + 1;  // k-major slab row, conflict-free
+  static constexpr int QROW = TQ + 1;
+  static constexpr int STAGE = (FK * EROW + FK * QROW) * 4;
+  static constexpr int SROW = TILE_N + 8;
+  static constexpr int SCORES = TQ * SROW * 4;
+  static constexpr int TOTAL = STAGE > SCORES ? STAGE : SCORES;
+};
+
+// q: (b, d) f32; emb: (n_rows, d) f32. Thread (warp w, lane l) owns queries
+// 4w..4w+3 and columns l + 32j, j < TILE_N/32.
+template <int TILE_N>
+__global__ void __launch_bounds__(THREADS)
+topt_dense_f32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ emb, int b, int d,
+                      int n_rows, int n_valid, int t_per_tile, int q_tiles,
+                      float* __restrict__ out_s, int* __restrict__ out_i) {
+  using S = SmemF32<TILE_N>;
+  constexpr int CJ = TILE_N / 32;  // columns per thread
+  constexpr int QI = TQ / (THREADS / 32);  // queries per thread (4)
+  __shared__ __align__(16) unsigned char smem[S::TOTAL];
+  float* es = reinterpret_cast<float*>(smem);  // [FK][EROW]
+  float* qs = es + FK * S::EROW;                // [FK][QROW]
+
+  const int q0 = (blockIdx.x % q_tiles) * TQ;
+  const int nt = blockIdx.x / q_tiles;
+  const int n0 = nt * TILE_N;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+
+  float acc[QI][CJ];
+#pragma unroll
+  for (int i = 0; i < QI; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < d; k0 += FK) {
+    // coalesced along d: consecutive threads read consecutive floats of a row
+    for (int i = tid; i < TILE_N * FK; i += THREADS) {
+      const int kk = i % FK, c = i / FK;
+      const int n = n0 + c, k = k0 + kk;
+      es[kk * S::EROW + c] =
+          n < n_rows && k < d ? emb[(size_t)n * d + k] : 0.f;
+    }
+    for (int i = tid; i < TQ * FK; i += THREADS) {
+      const int kk = i % FK, r = i / FK;
+      const int qq = q0 + r, k = k0 + kk;
+      qs[kk * S::QROW + r] = qq < b && k < d ? q[(size_t)qq * d + k] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < FK; ++kk) {
+      float qv[QI], ev[CJ];
+#pragma unroll
+      for (int i = 0; i < QI; ++i) qv[i] = qs[kk * S::QROW + warp * QI + i];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) ev[j] = es[kk * S::EROW + lane + 32 * j];
+#pragma unroll
+      for (int i = 0; i < QI; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(qv[i], ev[j], acc[i][j]);
+    }
+    __syncthreads();  // the next chunk overwrites the slab
+  }
+
+  float* sc = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < QI; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) {
+      const int cl = lane + 32 * j;
+      sc[(warp * QI + i) * S::SROW + cl] =
+          n0 + cl < n_valid ? acc[i][j] : NEG_INF;
+    }
+  __syncthreads();
+  topt::emit_topt<TILE_N, TQ, THREADS>(sc, S::SROW, q0, b, n0, nt,
+                                        t_per_tile, out_s, out_i);
+}
+
+int grid_of(int b, int n_rows, int tile_n, int* q_tiles, dim3* grid) {
+  *q_tiles = (b + TQ - 1) / TQ;
+  const long long blocks =
+      static_cast<long long>(*q_tiles) * ((n_rows + tile_n - 1) / tile_n);
+  if (blocks < 1 || blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *grid = dim3(static_cast<unsigned>(blocks));
+  return 0;
+}
+
+template <int TILE_N>
+int launch_bf16(const unsigned char* qh, const unsigned char* ql,
+                const unsigned char* emb, int b, int d, int n_rows,
+                int n_valid, int t_per_tile, float* out_s, int* out_i,
+                cudaStream_t stream) {
+  constexpr int smem = Smem<TILE_N>::TOTAL;
+  // once per process (a thread-safe static): the port drives one card
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      topt_dense_bf16_kernel<TILE_N>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  int q_tiles;
+  dim3 grid;
+  if (int rc = grid_of(b, n_rows, TILE_N, &q_tiles, &grid)) return rc;
+  topt_dense_bf16_kernel<TILE_N><<<grid, THREADS, smem, stream>>>(
+      qh, ql, emb, b, d, n_rows, n_valid, t_per_tile, q_tiles, out_s, out_i);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TILE_N>
+int launch_f32(const float* q, const float* emb, int b, int d, int n_rows,
+               int n_valid, int t_per_tile, float* out_s, int* out_i,
+               cudaStream_t stream) {
+  int q_tiles;
+  dim3 grid;
+  if (int rc = grid_of(b, n_rows, TILE_N, &q_tiles, &grid)) return rc;
+  topt_dense_f32_kernel<TILE_N><<<grid, THREADS, 0, stream>>>(
+      q, emb, b, d, n_rows, n_valid, t_per_tile, q_tiles, out_s, out_i);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entries for ctypes. Shapes: qh, ql (b, d) bf16 / q (b, d) f32;
+// emb (n_rows, d) of the same type; out_s, out_i
+// (ceil(n_rows / tile_n), b, t_per_tile). All contiguous, 16-byte aligned,
+// d % 16 == 0, tile_n in {128, 256}, 1 <= t_per_tile <= tile_n (the Python
+// wrapper checks). Each returns a cudaError_t, 0 on a clean launch.
+extern "C" int topt_dense_bf16_launch(const void* qh, const void* ql,
+                                      const void* emb, int b, int d,
+                                      int n_rows, int n_valid, int tile_n,
+                                      int t_per_tile, void* out_s,
+                                      void* out_i, void* stream) {
+  const auto* h = static_cast<const unsigned char*>(qh);
+  const auto* l = static_cast<const unsigned char*>(ql);
+  const auto* e = static_cast<const unsigned char*>(emb);
+  auto* os = static_cast<float*>(out_s);
+  auto* oi = static_cast<int*>(out_i);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (tile_n == 256)
+    return launch_bf16<256>(h, l, e, b, d, n_rows, n_valid, t_per_tile, os,
+                            oi, st);
+  if (tile_n == 128)
+    return launch_bf16<128>(h, l, e, b, d, n_rows, n_valid, t_per_tile, os,
+                            oi, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int topt_dense_f32_launch(const void* q, const void* emb, int b,
+                                     int d, int n_rows, int n_valid,
+                                     int tile_n, int t_per_tile, void* out_s,
+                                     void* out_i, void* stream) {
+  const auto* qf = static_cast<const float*>(q);
+  const auto* e = static_cast<const float*>(emb);
+  auto* os = static_cast<float*>(out_s);
+  auto* oi = static_cast<int*>(out_i);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (tile_n == 256)
+    return launch_f32<256>(qf, e, b, d, n_rows, n_valid, t_per_tile, os, oi,
+                           st);
+  if (tile_n == 128)
+    return launch_f32<128>(qf, e, b, d, n_rows, n_valid, t_per_tile, os, oi,
+                           st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

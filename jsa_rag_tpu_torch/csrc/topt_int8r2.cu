@@ -43,19 +43,25 @@
 //   same (query, column) cells and combines them in registers;
 // - scores go to shared memory (reusing the stage buffers), then one warp per
 //   query row keeps TILE_N/32 scores per lane in registers and runs the T
-//   passes with a shuffle argmax.
+//   passes with a shuffle argmax (topt_emit.cuh, shared with topt_dense.cu).
 // wgmma/TMA, a persistent schedule and ldmatrix fragment loads are later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "topt_emit.cuh"
+
 namespace {
+
+using topt::cp_async16;
+using topt::cp_async_commit;
+using topt::cp_async_wait_1;
+using topt::NEG_INF;
 
 constexpr int TQ = 32;        // queries per block (two planes -> 64 A rows)
 constexpr int KC = 128;       // bytes of d per pipeline stage
 constexpr int ROW = KC + 16;  // padded shared-memory row stride in bytes
 constexpr int THREADS = 256;  // 8 warps: 2 along queries x 4 along columns
-constexpr float NEG_INF = -3.40282347e+38f;  // float32 min, the JAX NEG_INF
 
 template <int TILE_N>
 struct Smem {
@@ -66,22 +72,6 @@ struct Smem {
   static constexpr int SCORES = TQ * SROW * 4;
   static constexpr int TOTAL = (2 * STAGE > SCORES) ? 2 * STAGE : SCORES;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // 0 bytes read -> 16 bytes of zeros written
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
                                        unsigned b0, unsigned b1) {
@@ -105,7 +95,6 @@ topt_int8r2_kernel(const int8_t* __restrict__ qv1,
   using S = Smem<TILE_N>;
   constexpr int WN = TILE_N / 4;  // columns per warp
   constexpr int NT8 = WN / 8;     // n8 mma tiles per warp
-  constexpr int V = TILE_N / 32;  // scores per lane in the emit
   constexpr int SEGS = KC / 16;   // 16-byte segments per staged row
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -211,48 +200,9 @@ topt_int8r2_kernel(const int8_t* __restrict__ qv1,
   }
   __syncthreads();
 
-  // per-row top-T: one warp per query row, TILE_N/32 scores per lane
-  for (int r = warp; r < TQ; r += THREADS / 32) {
-    const int q = q0 + r;
-    if (q >= b) break;  // warp-uniform: rows ascend with r
-    float v[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = sc[r * S::SROW + j * 32 + lane];
-    float* os = out_s + ((size_t)nt * b + q) * t_per_tile;
-    int* oi = out_i + ((size_t)nt * b + q) * t_per_tile;
-    for (int t = 0; t < t_per_tile; ++t) {
-      // lane-local max; columns ascend with j, so ">" keeps the first
-      float bv = v[0];
-      int bc = lane;
-#pragma unroll
-      for (int j = 1; j < V; ++j) {
-        if (v[j] > bv) {
-          bv = v[j];
-          bc = j * 32 + lane;
-        }
-      }
-      // warp argmax, ties to the lower column (jnp.argmax's first hit)
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oc = __shfl_xor_sync(0xffffffffu, bc, off);
-        if (ov > bv || (ov == bv && oc < bc)) {
-          bv = ov;
-          bc = oc;
-        }
-      }
-      if (lane == 0) {
-        os[t] = bv;
-        oi[t] = bv > NEG_INF * 0.5f ? n0 + bc : -1;
-      }
-      if ((bc & 31) == lane) {
-        const int js = bc >> 5;
-#pragma unroll
-        for (int j = 0; j < V; ++j)
-          if (j == js) v[j] = NEG_INF;
-      }
-    }
-  }
+  // per-row top-T (the shared emit, topt_emit.cuh)
+  topt::emit_topt<TILE_N, TQ, THREADS>(sc, S::SROW, q0, b, n0, nt,
+                                        t_per_tile, out_s, out_i);
 }
 
 template <int TILE_N>

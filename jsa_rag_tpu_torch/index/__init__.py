@@ -1,5 +1,6 @@
 """Index construction and loading (counterpart of
-``jsa_rag_tpu/index/__init__.py``): flat int8r only in this slice."""
+``jsa_rag_tpu/index/__init__.py``): flat int8r, bfloat16 and float32 in
+this port so far."""
 
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ def build_index_for(opt, n_passages: int, dim: int, device="cuda"):
     """Construct the index an options object asks for (``index_mode``,
     ``faiss_index_type``, ``index_dtype``, ``int8r_refine``, ``refine_r``
     — the JAX package's flag names). IVF and PQ modes are ROADMAP queue A
-    item 14."""
+    item 14; float16, int8 and hybrid storage wait for their kernels
+    (``flat.NOT_PORTED``)."""
     mode = opt.index_mode
     if mode == "faiss" and opt.faiss_index_type == "flat":
         mode = "flat"
@@ -27,8 +29,9 @@ def build_index_for(opt, n_passages: int, dim: int, device="cuda"):
     return idx
 
 
-def load_index(path: str, device="cuda", expected_dim: int | None = None,
-               refine_r: int | None = None, int8r_refine: str = "rows"):
+def load_index(path: str, device="cuda", method: str = "auto",
+               expected_dim: int | None = None, refine_r: int | None = None,
+               int8r_refine: str = "rows"):
     """Load a saved index. ``expected_dim`` validates against the live
     retriever's hidden size; ``refine_r`` overrides the rescore-pool width
     so a loaded index searches with the same pool as a freshly built one."""
@@ -37,7 +40,7 @@ def load_index(path: str, device="cuda", expected_dim: int | None = None,
     if kind != "flat":
         raise NotImplementedError(
             f"{kind} index at {path}: IVF is ROADMAP queue A item 14")
-    index = ShardedFlatIndex.load(path, device=device,
+    index = ShardedFlatIndex.load(path, device=device, method=method,
                                   int8r_refine=int8r_refine)
     if refine_r is not None:
         index.refine_r = refine_r

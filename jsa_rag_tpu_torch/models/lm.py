@@ -1,0 +1,346 @@
+"""Decoder-only LM (llama/mistral-family geometry) for generation.
+
+Counterpart of ``jsa_rag_tpu/models/lm.py``, llama architecture, inference
+only: RMSNorm + rotary positions + grouped-query attention + SwiGLU, one
+``lm_logits`` forward for CE and scoring, and greedy decoding over a
+preallocated KV cache. Plain functions on tensors over a parameter dict with
+the JAX package's key names and (in, out) weight layout (``x @ w``), so
+``convert.py`` moves a numpy pytree into either package:
+``embed``, ``final_norm``, ``lm_head`` (untied) and ``layers.<i>.{attn_norm,
+q_w, k_w, v_w, o_w, mlp_norm, gate_w, up_w, down_w}``.
+
+Numerics follow the JAX package: RMSNorm in f32 cast back to the activation
+dtype, rotary angles and products in f32, attention logits and the unembed
+accumulated in f32 (bf16 products are exact in f32; on the card the f32
+products run with TF32 off), a -1e9 additive mask, f32 softmax cast to the
+activation dtype. The matmul weights are cast to ``cfg.dtype`` once per call
+(the JAX package casts inside each matmul, which gives the same numbers).
+
+Not ported yet (ROADMAP queue A item 12): the gpt2 architecture and
+``beam_generate``; dropout and remat belong to the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+IGNORE_INDEX = -100  # label mask value, same constant as the reference
+A12 = "is not ported yet: ROADMAP queue A item 12"
+MATMUL_WEIGHTS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    vocab_size: int = 32000
+    hidden: int = 4096
+    layers: int = 32
+    heads: int = 32
+    kv_heads: int = 8
+    intermediate: int = 14336
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: torch.dtype = torch.bfloat16
+    arch: str = "llama"
+    # carried so the JAX package's config dicts load as they are; the
+    # inference forward has no remat, no dropout and no learned positions
+    remat: bool = False
+    max_positions: int = 1024
+    dropout: float = 0.0
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden // self.heads
+
+
+def _check_arch(cfg: LMConfig) -> None:
+    if cfg.arch != "llama":
+        raise NotImplementedError(f"generator arch {cfg.arch!r} {A12}")
+
+
+def lm_init(cfg: LMConfig, *, device, generator: torch.Generator) -> dict:
+    """N(0, 0.02) f32 weights, unit norm scales, the JAX tree's shapes."""
+    _check_arch(cfg)
+
+    def w(shape):
+        return 0.02 * torch.randn(shape, generator=generator, device=device)
+
+    def ones():
+        return torch.ones((cfg.hidden,), device=device)
+
+    hd = cfg.head_dim
+    p = {"embed": w((cfg.vocab_size, cfg.hidden)), "final_norm": ones(),
+         "layers": []}
+    for _ in range(cfg.layers):
+        p["layers"].append({
+            "attn_norm": ones(),
+            "q_w": w((cfg.hidden, cfg.heads * hd)),
+            "k_w": w((cfg.hidden, cfg.kv_heads * hd)),
+            "v_w": w((cfg.hidden, cfg.kv_heads * hd)),
+            "o_w": w((cfg.heads * hd, cfg.hidden)),
+            "mlp_norm": ones(),
+            "gate_w": w((cfg.hidden, cfg.intermediate)),
+            "up_w": w((cfg.hidden, cfg.intermediate)),
+            "down_w": w((cfg.intermediate, cfg.hidden)),
+        })
+    if not cfg.tie_embeddings:
+        p["lm_head"] = w((cfg.hidden, cfg.vocab_size))
+    return p
+
+
+def _cast_params(params: dict, cfg: LMConfig) -> dict:
+    """The matmul weights and the embedding table in ``cfg.dtype``; the
+    head rounded to ``cfg.dtype`` and held in f32 for the f32-accumulated
+    unembed; the norm scales as stored (f32), as in the JAX package, where
+    ``y * scale`` runs in f32."""
+    dt = cfg.dtype
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["embed"] = params["embed"].to(dt)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    out["head"] = head.to(dt).to(torch.float32)
+    out["layers"] = [{k: (v.to(dt) if k in MATMUL_WEIGHTS else v)
+                      for k, v in layer.items()}
+                     for layer in params["layers"]]
+    return out
+
+
+def _rms_norm(x, scale, eps):
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * scale).to(x.dtype)
+
+
+def _rope(x, positions, theta):
+    """x: (B, S, N, D); positions: (B, S)."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    angles = positions[..., None].to(torch.float32) * freqs  # (B, S, half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    xf = x.to(torch.float32)
+    x1, x2 = xf[..., :half], xf[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def positions_from_mask(attention_mask) -> torch.Tensor:
+    """Left- or right-padding agnostic positions: cumsum(mask)-1, clamped."""
+    return (torch.cumsum(attention_mask.long(), dim=1) - 1).clamp_min(0)
+
+
+def _attention(layer, cfg: LMConfig, x, positions, bias, cache=None,
+               cache_len: int = 0):
+    """GQA attention. With ``cache`` = (k, v) of (B, T, kv_heads, hd), this
+    call's k/v are written into it in place at ``cache_len`` (JAX returns an
+    updated copy; in place saves a cache's worth of memory per step) and the
+    queries attend over the whole window, ``bias`` masking the rest."""
+    b, s, _ = x.shape
+    nh, nkv, hd = cfg.heads, cfg.kv_heads, cfg.head_dim
+    q = (x @ layer["q_w"]).reshape(b, s, nh, hd)
+    k = (x @ layer["k_w"]).reshape(b, s, nkv, hd)
+    v = (x @ layer["v_w"]).reshape(b, s, nkv, hd)
+    q = _rope(q, positions, cfg.rope_theta)
+    k = _rope(k, positions, cfg.rope_theta)
+    if cache is not None:
+        ck, cv = cache
+        ck[:, cache_len:cache_len + s] = k
+        cv[:, cache_len:cache_len + s] = v
+        k, v = ck, cv
+    # grouped-query attention without repeating k/v: the grouped queries
+    # contract directly against the shared kv heads
+    rep = nh // nkv
+    qg = q.reshape(b, s, nkv, rep, hd).to(torch.float32)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg,
+                          k.to(torch.float32)) / math.sqrt(hd)
+    logits = logits + bias[:, None]  # (b, 1, q, k) -> (b, 1, 1, q, k)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bgrqk,bkgd->bqgrd", probs, v).reshape(b, s, nh * hd)
+    return ctx @ layer["o_w"]
+
+
+def _mlp(layer, x):
+    g = x @ layer["gate_w"]
+    u = x @ layer["up_w"]
+    return (torch.nn.functional.silu(g) * u) @ layer["down_w"]
+
+
+def _block(layer, cfg: LMConfig, x, positions, bias, cache=None,
+           cache_len: int = 0):
+    x = x + _attention(layer, cfg, _rms_norm(x, layer["attn_norm"],
+                                             cfg.rms_eps),
+                       positions, bias, cache, cache_len)
+    return x + _mlp(layer, _rms_norm(x, layer["mlp_norm"], cfg.rms_eps))
+
+
+def _unembed(p: dict, cfg: LMConfig, x):
+    """f32 logits of the final-normed hidden states: the activation-dtype
+    products are exact in f32 and summed there (the JAX package's
+    ``preferred_element_type=f32``)."""
+    x = _rms_norm(x, p["final_norm"], cfg.rms_eps)
+    return x.to(torch.float32) @ p["head"]
+
+
+def lm_logits(params: dict, cfg: LMConfig, input_ids, attention_mask,
+              positions=None) -> torch.Tensor:
+    """(B, S) -> (B, S, V) f32 logits. Causal + padding mask."""
+    _check_arch(cfg)
+    p = _cast_params(params, cfg)
+    s = input_ids.shape[1]
+    if positions is None:
+        positions = positions_from_mask(attention_mask)
+    x = p["embed"][input_ids.long()]
+    causal = torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                   device=x.device))[None, None]
+    keymask = attention_mask[:, None, None, :].bool()
+    bias = torch.where(causal & keymask, 0.0, -1e9).to(torch.float32)
+    for layer in p["layers"]:
+        x = _block(layer, cfg, x, positions, bias)
+    return _unembed(p, cfg, x)
+
+
+def lm_loss(params: dict, cfg: LMConfig, input_ids, attention_mask, labels,
+            *, length_normalized: bool = True, logit_temp: float = 1.0):
+    """Causal-LM cross entropy with IGNORE_INDEX masking -> (per-sequence
+    loss (B,), summed NLL (B,)); length-normalised like the reference's
+    per-sequence CE (src/rag.py:1338-1366). ``logit_temp`` divides the
+    logits before CE (``temperature_gold``, src/rag.py:1349)."""
+    logits = lm_logits(params, cfg, input_ids, attention_mask)
+    if logit_temp != 1.0:
+        logits = logits / logit_temp
+    # next-token prediction: logits[t] predicts token t+1
+    logits = logits[:, :-1]
+    targets = labels[:, 1:].long()
+    valid = targets != IGNORE_INDEX
+    safe = torch.where(valid, targets, 0)
+    logp = torch.log_softmax(logits, dim=-1)
+    tok_logp = torch.gather(logp, -1, safe[..., None])[..., 0]
+    tok_logp = torch.where(valid, tok_logp, 0.0)
+    n_tok = valid.sum(dim=1).clamp_min(1)
+    sum_nll = -tok_logp.sum(dim=1)
+    if length_normalized:
+        return sum_nll / n_tok, sum_nll
+    return sum_nll, sum_nll
+
+
+def lm_sequence_logprob(params, cfg, input_ids, attention_mask, labels,
+                        *, length_normalized: bool = True):
+    """log p(target | prompt) per sequence (the reference's
+    ``get_llm_score``, src/rag.py:2328-2345)."""
+    per_seq, _ = lm_loss(params, cfg, input_ids, attention_mask, labels,
+                         length_normalized=length_normalized)
+    return -per_seq
+
+
+# ------------------------------------------------------------------ decoding
+def init_cache(cfg: LMConfig, batch: int, max_len: int, device):
+    hd = cfg.head_dim
+    return [(torch.zeros((batch, max_len, cfg.kv_heads, hd), dtype=cfg.dtype,
+                         device=device),
+             torch.zeros((batch, max_len, cfg.kv_heads, hd), dtype=cfg.dtype,
+                         device=device))
+            for _ in range(cfg.layers)]
+
+
+def _forward_with_cache(p, cfg, input_ids, attention_mask, positions,
+                        cache, cache_len: int, total_len: int):
+    """Shared by prefill (S = prompt length) and decode (S = 1) over the
+    cast params ``p``; ``attention_mask`` is the mask over the FULL cache
+    window (B, total_len). Returns the LAST position's (B, V) f32 logits
+    (all that decoding reads; the JAX package unembeds every position and
+    takes the last, the same numbers)."""
+    s = input_ids.shape[1]
+    dev = input_ids.device
+    x = p["embed"][input_ids.long()]
+    k_pos = torch.arange(total_len, device=dev)[None, :]
+    causal = (k_pos[:, None, :]
+              <= (cache_len + torch.arange(s, device=dev))[None, :, None])
+    keymask = attention_mask[:, None, :].bool()
+    bias = torch.where((causal & keymask)[:, None], 0.0,
+                       -1e9).to(torch.float32)
+    for layer, lc in zip(p["layers"], cache):
+        x = _block(layer, cfg, x, positions, bias, lc, cache_len)
+    return _unembed(p, cfg, x[:, -1])
+
+
+def _apply_forced_prefix(choice, t: int, forced_prefix, forced_len):
+    """Force ``choice[b] = forced_prefix[b, t]`` while ``t < forced_len[b]``
+    (the reference's ``prefix_allowed_tokens_fn``, src/rag.py:2244-2274)."""
+    forced_t = forced_prefix[:, min(t, forced_prefix.shape[1] - 1)]
+    return torch.where(t < forced_len, forced_t.long(), choice)
+
+
+def greedy_generate(params: dict, cfg: LMConfig, input_ids, attention_mask,
+                    *, max_new_tokens: int, eos_id: int, pad_id: int,
+                    min_new_tokens: int = 0, forced_prefix=None,
+                    forced_len=None, return_logprobs: bool = False):
+    """Greedy decode with a preallocated KV cache (``lm.py:538-642``).
+
+    ``input_ids`` must be LEFT-padded. Returns (B, max_new_tokens) int64
+    ids, ``pad_id`` after EOS; with ``return_logprobs`` also the (B,
+    max_new_tokens) f32 log-prob of each emitted token (0 after EOS).
+    ``min_new_tokens`` bans EOS (``eos_id`` >= 0) until that many tokens
+    are out; ``forced_prefix``/``forced_len`` ((B, P), (B,)) force each
+    row's first tokens. The loop stops once every row has emitted EOS; the
+    pad-initialised buffers make the outputs equal those of a full-length
+    loop."""
+    _check_arch(cfg)
+    p = _cast_params(params, cfg)  # once per call, not once per step
+    b, prompt_len = input_ids.shape
+    dev = input_ids.device
+    total = prompt_len + max_new_tokens
+    cache = init_cache(cfg, b, total, dev)
+    positions = positions_from_mask(attention_mask)
+    mask = torch.cat([attention_mask.long(),
+                      torch.zeros((b, max_new_tokens), dtype=torch.long,
+                                  device=dev)], dim=1)
+
+    def pick(logits, t):
+        """(token, its log-prob) from step-t logits (t counts emitted
+        tokens), with the EOS ban and the forced prefix."""
+        if t < min_new_tokens and eos_id >= 0:
+            logits = logits.clone()
+            logits[:, eos_id] = -torch.inf
+        tok = torch.argmax(logits, dim=-1)
+        if forced_prefix is not None:
+            tok = _apply_forced_prefix(tok, t, forced_prefix, forced_len)
+        lp = torch.gather(torch.log_softmax(logits, dim=-1), 1,
+                          tok[:, None])[:, 0]
+        return tok, lp
+
+    with torch.no_grad():
+        logits = _forward_with_cache(p, cfg, input_ids, mask, positions,
+                                     cache, 0, total)
+        tok, lp = pick(logits, 0)
+        pos = positions[:, -1] + 1
+        done = tok == eos_id
+        toks = torch.full((b, max_new_tokens), pad_id, dtype=torch.long,
+                          device=dev)
+        lps = torch.zeros((b, max_new_tokens), dtype=torch.float32,
+                          device=dev)
+        for t in range(max_new_tokens):
+            toks[:, t] = tok
+            lps[:, t] = lp
+            # every row done: all later tokens are pad; the last step's
+            # forward would feed nothing
+            if t + 1 == max_new_tokens or bool(done.all()):
+                break
+            mask[:, prompt_len + t] = 1
+            logits = _forward_with_cache(p, cfg, tok[:, None], mask,
+                                         pos[:, None], cache,
+                                         prompt_len + t, total)
+            new_tok, new_lp = pick(logits, t + 1)
+            tok = torch.where(done, pad_id, new_tok)
+            lp = torch.where(done, 0.0, new_lp)  # post-EOS pads score 0
+            done = done | (tok == eos_id)
+            pos = pos + 1
+    if return_logprobs:
+        return toks, lps
+    return toks
+
+
+def beam_generate(*args, **kwargs):
+    raise NotImplementedError(f"beam_generate {A12}")

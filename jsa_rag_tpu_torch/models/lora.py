@@ -1,0 +1,70 @@
+"""LoRA: low-rank adapter overlay on the generator's parameter dict.
+
+Counterpart of ``jsa_rag_tpu/models/lora.py`` (:20-82) for inference: the
+adapter tree mirrors the base tree at the targeted weight leaves,
+``{"layers": [{name: {"A": (in, r), "B": (r, out)}}]}``, and ``lora_apply``
+materialises ``W + (alpha/rank) * A @ B``. Gradients, and the
+stop-gradient of the base, belong to the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LoRAConfig:
+    rank: int = 8
+    alpha: float = 16.0
+    # the reference's llama/mistral targets (src/model_io.py:160-168) plus
+    # the gpt2 family's names; lora_init matches by presence
+    targets: tuple[str, ...] = (
+        "q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w",
+        "qkv_w", "fc_w", "proj_w",
+    )
+
+
+def lora_init(params: dict, cfg: LoRAConfig, *, generator: torch.Generator,
+              device) -> dict:
+    """For each targeted 2-D leaf of ``params["layers"]``: A ~ 0.01 N(0, 1)
+    of (in, r) and B = 0 of (r, out), so the initial model is the base."""
+    tree: dict = {"layers": []}
+    for layer in params["layers"]:
+        entry = {}
+        for name in cfg.targets:
+            if name not in layer:
+                continue
+            w = layer[name]
+            entry[name] = {
+                "A": 0.01 * torch.randn((w.shape[0], cfg.rank),
+                                        generator=generator, device=device),
+                "B": torch.zeros((cfg.rank, w.shape[1]), device=device),
+            }
+        tree["layers"].append(entry)
+    return tree
+
+
+def lora_apply(params: dict, lora: dict, cfg: LoRAConfig) -> dict:
+    """Effective params: W + (alpha/rank) (A @ B) at the targeted leaves,
+    the delta cast to W's dtype; every other leaf is shared, not copied."""
+    scale = cfg.alpha / cfg.rank
+    merged = {k: v for k, v in params.items() if k != "layers"}
+    merged["layers"] = []
+    for layer, entry in zip(params["layers"], lora["layers"]):
+        out = dict(layer)
+        for name, ab in entry.items():
+            w = layer[name]
+            out[name] = w + ((ab["A"] @ ab["B"]) * scale).to(w.dtype)
+        merged["layers"].append(out)
+    return merged
+
+
+def gen_params(params: dict, lora_cfg: LoRAConfig | None) -> dict:
+    """The generator weights a forward uses: the LoRA-merged tree when an
+    adapter is configured and present, else the base (``ApplyFns.gen_params``,
+    ``train/modes.py:65-69``)."""
+    if lora_cfg is not None and "lora" in params:
+        return lora_apply(params["generator"], params["lora"], lora_cfg)
+    return params["generator"]

@@ -1,20 +1,28 @@
-"""Exact f32 maximum-inner-product search: the oracle.
+"""Exact f32 maximum-inner-product search (the oracle) and the dense
+index's search dispatch.
 
-Counterpart of ``jsa_rag_tpu/ops/mips.py`` (:55-211): ``mips_topk_exact``
+Counterpart of ``jsa_rag_tpu/ops/mips.py`` (:55-270): ``mips_topk_exact``
 over row-major (N, d) embeddings and ``mips_topk_xla_t`` over a transposed
 (d, N) index with a runtime valid count. Both stream the index in column
 chunks and carry a running (B, k) top-k, so a 1.3M x 1024 corpus never
 materialises a (B, N) score matrix. On the card the products run in full
 f32 with TF32 off — the GPU form of the TPU's HIGHEST-precision rule, which
-keeps the oracle exact. The approximate variant (``lax.approx_max_k``, a TPU
-hardware op) is not ported yet: ROADMAP queue A item 14.
+keeps the oracle exact. ``mips_topk_t`` dispatches a bf16/f32 flat index's
+search by the JAX package's method names. The approximate variant
+(``lax.approx_max_k``, a TPU hardware op) is not ported yet: ROADMAP queue A
+item 14.
 """
 
 from __future__ import annotations
 
+from typing import Literal
+
 import torch
 
 from ..device import exact_f32_matmul
+from .mips_topt import mips_topk_dense_t
+
+Method = Literal["auto", "exact", "approx", "pallas", "pallas2"]
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -63,3 +71,50 @@ def mips_topk_xla_t(queries: torch.Tensor, embeddings_t: torch.Tensor,
     return _scan_cols(
         queries, lambda s, w: embeddings_t[:, s:s + w].to(torch.float32),
         n, k, chunk, nv)
+
+
+AUTO_FUSED_MIN_ROWS = 16384
+
+
+def auto_method(device_type: str, n: int) -> str:
+    """``method="auto"``: the fused scan on the card for N >= 16384 rows,
+    the exact chunked scan otherwise (the rule of ``mips.py:253-255``, with
+    the card's own crossover: on an H100 80GB HBM3 at 700 W,
+    ``chip_smoke.py`` phase 6 times one search of 8 queries over bf16 rows
+    of d=1024, fused against exact, over two runs: 0.16-0.20 against
+    0.14-0.21 ms at 4,096 rows, 0.20-0.30 against 0.22-0.30 ms at 16,384,
+    0.32 against 0.58 ms at 32,768 and 0.21 against 0.85-0.88 ms at
+    65,536, where the TPU's threshold sits)."""
+    return ("pallas2" if device_type == "cuda" and n >= AUTO_FUSED_MIN_ROWS
+            else "exact")
+
+
+def mips_topk_t(queries: torch.Tensor, emb_rows: torch.Tensor, k: int, *,
+                method: Method = "auto", chunk: int | None = None,
+                valid_n: int | None = None, pool_n: int | None = None):
+    """MIPS over a dense flat index (counterpart of ``mips_topk_t``,
+    ``mips.py:214-270``): ``emb_rows`` (N, d) bf16 or f32, row-major here
+    (the JAX package's is (d, N)). ``"pallas"``/``"pallas2"`` run the fused
+    scan (kernel B3 on a CUDA tensor, its plain version on a CPU one);
+    ``"auto"`` picks it on CUDA for N >= 16384 and the exact chunked scan
+    below that (``auto_method``); ``"exact"`` is the f32
+    oracle with the runtime valid count. -> (scores (B, k), ids (B, k))."""
+    if emb_rows.dtype in (torch.int16, torch.float16):
+        raise NotImplementedError(
+            "float16 index storage is not ported yet: ROADMAP queue B items "
+            "4-5")
+    n = emb_rows.shape[0]
+    if method == "auto":
+        method = auto_method(emb_rows.device.type, n)
+    if method in ("pallas", "pallas2"):
+        return mips_topk_dense_t(queries, emb_rows, k, valid_n=valid_n,
+                                 pool_n=pool_n)
+    if method == "exact":
+        nv = n if valid_n is None else int(valid_n)
+        return _scan_cols(
+            queries, lambda s, w: emb_rows[s:s + w].to(torch.float32).T,
+            n, min(k, n), chunk or 16384, nv)
+    if method == "approx":
+        raise NotImplementedError(
+            "approximate MIPS is not ported yet: ROADMAP queue A item 14")
+    raise ValueError(f"unknown MIPS method {method!r}")

@@ -1,16 +1,24 @@
-"""int8r coarse scan + exact candidate merge + rows refine.
+"""Scan-and-select MIPS: the int8r and dense (bf16/f32) scans, the exact
+candidate merge and the int8r rows refine.
 
-Counterpart of ``jsa_rag_tpu/ops/mips_pallas2.py``, int8r subset: the
-``refine > 0``, ``res_rows``, ``int8r_refine="rows"`` branch of
-``mips_topk_pallas2_int8_t`` (:794-945) — the default search of the int8r
-flat index. The Pallas kernel ``_topt_int8r2_kernel_t`` (:724-747, with its
-``_emit_topt`` epilogue, :32-49) becomes the hand-written CUDA kernel
-``csrc/topt_int8r2.cu``; its plain PyTorch version lives here
-(``scan_topt_int8r2_plain``). Quantisation, the merge and the refine stay
-plain PyTorch, as they stayed XLA in the JAX package.
+Counterpart of ``jsa_rag_tpu/ops/mips_pallas2.py``, two subsets:
 
-Layout: the index plane is row-major ``(N, d)`` here (the JAX package keeps
-``(d, N)`` for the TPU's MXU); see the kernel source for why.
+- int8r: the ``refine > 0``, ``res_rows``, ``int8r_refine="rows"`` branch of
+  ``mips_topk_pallas2_int8_t`` (:794-945) — the default search of the int8r
+  flat index. The Pallas kernel ``_topt_int8r2_kernel_t`` (:724-747) becomes
+  the hand-written CUDA kernel ``csrc/topt_int8r2.cu`` (kernel B1); its plain
+  PyTorch version is ``scan_topt_int8r2_plain``;
+- dense: ``mips_topk_pallas2_t`` (:203-292), the search of every bf16/f32
+  flat index, as ``mips_topk_dense_t``. The Pallas kernel ``_topt_kernel_t``
+  (:176-200) becomes ``csrc/topt_dense.cu`` (kernel B3); its plain version
+  is ``scan_topt_dense_plain``.
+
+Both kernels end in the per-tile emit ``_emit_topt`` (:32-49), shared in
+``csrc/topt_emit.cuh``. Quantisation, the merge and the refine stay plain
+PyTorch, as they stayed XLA in the JAX package.
+
+Layout: the index is row-major ``(N, d)`` here (the JAX package keeps
+``(d, N)`` for the TPU's MXU); see the kernel sources for why.
 """
 
 from __future__ import annotations
@@ -22,10 +30,10 @@ import numpy as np
 import torch
 
 from ..device import exact_f32_matmul
-from ._build import load_library
+from ._build import load_libraries
 
 NEG_INF = float(torch.finfo(torch.float32).min)
-KERNEL_TILES = (128, 256)  # emit tiles the CUDA kernel is built for
+KERNEL_TILES = (128, 256)  # emit tiles the CUDA kernels are built for
 _INV_127 = float(np.float32(1.0 / 127.0))
 
 
@@ -42,6 +50,17 @@ def _pool_t(k: int, n: int, tile_n: int, t_per_tile: int) -> int:
     full_tiles = max(1, n // tile_n)
     margin = int(3 * (k / full_tiles) ** 0.5 + 1)
     return min(tile_n, max(t_per_tile, -(-k // full_tiles) + margin))
+
+
+def scan_geometry(n: int, k: int, pool_n: int | None = None,
+                  tile_n: int = 256, t_per_tile: int = 4) -> tuple[int, int]:
+    """(emit tile, T) a fused search over ``n`` index rows gives its scan
+    when it selects ``k`` candidates: the tile clamps to ``round_up(n,
+    128)`` and T comes from ``_pool_t`` over ``pool_n`` (a lower bound on
+    the valid rows; ``n`` when None)."""
+    tile_n = min(tile_n, _round_up(n, 128))
+    return tile_n, _pool_t(k, min(n, n if pool_n is None else pool_n),
+                           tile_n, t_per_tile)
 
 
 # ---------------------------------------------------------------- quantise
@@ -101,26 +120,15 @@ def _check_scan_args(qv1, qs1, qv2, qs2, emb, es, valid_n, tile_n,
         raise ValueError(f"t_per_tile {t_per_tile} outside [1, {tile_n}]")
 
 
-def scan_topt_int8r2_plain(qv1, qs1, qv2, qs2, emb, es, valid_n: int,
-                           tile_n: int, t_per_tile: int):
-    """Plain PyTorch version of the kernel: the same scores, the same
-    (score desc, column asc) order per tile, the same -1 sentinel.
-
-    The int8 products run as a float matmul, which is exact: every partial
-    sum is an integer of magnitude <= d*127^2, exactly representable in f32
-    while that is < 2^24 (d <= 1040) and in f64 beyond. A stable descending
-    sort of each tile orders equal scores by column, which is what T
-    first-occurrence extract-max passes emit. Scans ~64k index rows at a
-    time so the (B, N) score matrix never exists whole."""
-    _check_scan_args(qv1, qs1, qv2, qs2, emb, es, valid_n, tile_n,
-                     t_per_tile)
-    b, d = qv1.shape
-    n_rows = emb.shape[0]
+def _tile_topt_plain(score_rows, b: int, n_rows: int, valid_n: int,
+                     tile_n: int, t_per_tile: int, dev):
+    """Per-tile top-T of the scores ``score_rows(lo, hi)`` -> (B, hi - lo)
+    f32, over ~64k index rows at a time so the (B, N) score matrix never
+    exists whole. A stable descending sort of each tile orders equal scores
+    by column, which is what T first-occurrence extract-max passes emit;
+    columns at or past ``valid_n`` score NEG_INF and exhausted slots get
+    id -1."""
     n_tiles = -(-n_rows // tile_n)
-    exact = torch.float32 if d * 127 * 127 < 2 ** 24 else torch.float64
-    dev = emb.device
-    qs1, qs2, es = qs1.reshape(b, 1), qs2.reshape(b, 1), es.reshape(-1)
-    q = torch.cat([qv1, qv2]).to(exact)
     out_s = torch.empty((n_tiles, b, t_per_tile), dtype=torch.float32,
                         device=dev)
     out_i = torch.empty((n_tiles, b, t_per_tile), dtype=torch.int32,
@@ -129,8 +137,7 @@ def scan_topt_int8r2_plain(qv1, qs1, qv2, qs2, emb, es, valid_n: int,
     for c0 in range(0, n_tiles, step):
         c1 = min(n_tiles, c0 + step)
         lo, hi = c0 * tile_n, min(c1 * tile_n, n_rows)
-        acc = (q @ emb[lo:hi].to(exact).T).to(torch.float32)
-        s = (acc[:b] * qs1 + acc[b:] * qs2) * es[lo:hi]
+        s = score_rows(lo, hi)
         col = torch.arange(lo, hi, device=dev)
         s = torch.where(col < valid_n, s, NEG_INF)
         width = (c1 - c0) * tile_n
@@ -147,15 +154,84 @@ def scan_topt_int8r2_plain(qv1, qs1, qv2, qs2, emb, es, valid_n: int,
     return out_s, out_i
 
 
+def scan_topt_int8r2_plain(qv1, qs1, qv2, qs2, emb, es, valid_n: int,
+                           tile_n: int, t_per_tile: int):
+    """Plain PyTorch version of kernel B1: the same scores, the same
+    (score desc, column asc) order per tile, the same -1 sentinel.
+
+    The int8 products run as a float matmul, which is exact: every partial
+    sum is an integer of magnitude <= d*127^2, exactly representable in f32
+    while that is < 2^24 (d <= 1040) and in f64 beyond."""
+    _check_scan_args(qv1, qs1, qv2, qs2, emb, es, valid_n, tile_n,
+                     t_per_tile)
+    b, d = qv1.shape
+    exact = torch.float32 if d * 127 * 127 < 2 ** 24 else torch.float64
+    qs1, qs2, es = qs1.reshape(b, 1), qs2.reshape(b, 1), es.reshape(-1)
+    q = torch.cat([qv1, qv2]).to(exact)
+
+    def score_rows(lo, hi):
+        acc = (q @ emb[lo:hi].to(exact).T).to(torch.float32)
+        return (acc[:b] * qs1 + acc[b:] * qs2) * es[lo:hi]
+
+    return _tile_topt_plain(score_rows, b, emb.shape[0], valid_n, tile_n,
+                            t_per_tile, emb.device)
+
+
+KERNELS = ("topt_int8r2", "topt_dense")
+
+
 @functools.cache
-def _kernel_lib():
-    lib = load_library("topt_int8r2")
+def _kernel_libs() -> dict:
+    """Both scan kernels, built together (one nvcc each, concurrently) at
+    first use."""
+    libs = load_libraries(KERNELS)
     # pointers and the stream as c_void_p: undeclared, ctypes would pass
     # them as 32-bit ints and cut them
-    lib.topt_int8r2_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
-    lib.topt_int8r2_launch.restype = ctypes.c_int
-    return lib
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for fn, argtypes in (
+            (libs["topt_int8r2"].topt_int8r2_launch,
+             [ptr] * 6 + [i32] * 6 + [ptr] * 3),
+            (libs["topt_dense"].topt_dense_bf16_launch,
+             [ptr] * 3 + [i32] * 6 + [ptr] * 3),
+            (libs["topt_dense"].topt_dense_f32_launch,
+             [ptr] * 2 + [i32] * 6 + [ptr] * 3)):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return libs
+
+
+def _check_launch(b: int, d: int, n_rows: int, tile_n: int, planes):
+    """What both kernels refuse: an emit tile they are not built for, d not
+    a multiple of 16, planes not 16-byte aligned for cp.async, or a grid or
+    row id past int32. -> n_tiles."""
+    if tile_n not in KERNEL_TILES:
+        raise ValueError(f"kernel tile_n must be one of {KERNEL_TILES}")
+    if d % 16 or any(t.data_ptr() % 16 for t in planes):
+        raise ValueError("kernel needs d % 16 == 0 and 16-byte aligned "
+                         "planes")
+    n_tiles = -(-n_rows // tile_n)
+    # one block per (32-query tile, index tile) on a 1-D grid
+    if (b < 1 or n_tiles < 1 or n_rows >= 2 ** 31 - tile_n
+            or -(-b // 32) * n_tiles >= 2 ** 31):
+        raise ValueError(f"kernel grid out of range: b={b}, "
+                         f"n_tiles={n_tiles}")
+    return n_tiles
+
+
+def _launch(name: str, fn, args, b: int, n_tiles: int, t_per_tile: int,
+            dev):
+    """Allocate the (n_tiles, b, T) outputs and launch on the current
+    stream; a non-zero cudaError from the launch raises."""
+    out_s = torch.empty((n_tiles, b, t_per_tile), dtype=torch.float32,
+                        device=dev)
+    out_i = torch.empty((n_tiles, b, t_per_tile), dtype=torch.int32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(*args, out_s.data_ptr(), out_i.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    return out_s, out_i
 
 
 def scan_topt_int8r2(qv1, qs1, qv2, qs2, emb, es, valid_n: int,
@@ -177,36 +253,130 @@ def scan_topt_int8r2(qv1, qs1, qv2, qs2, emb, es, valid_n: int,
                      t_per_tile)
     b, d = qv1.shape
     n_rows = emb.shape[0]
-    n_tiles = -(-n_rows // tile_n)
-    if tile_n not in KERNEL_TILES:
-        raise ValueError(f"kernel tile_n must be one of {KERNEL_TILES}")
-    if d % 16 or any(t.data_ptr() % 16 for t in (qv1, qv2, emb)):
-        raise ValueError("kernel needs d % 16 == 0 and 16-byte aligned "
-                         "int8 planes")
-    # one block per (32-query tile, index tile) on a 1-D grid; row ids and
-    # the grid are int32
-    if (b < 1 or n_tiles < 1 or n_rows >= 2 ** 31 - tile_n
-            or -(-b // 32) * n_tiles >= 2 ** 31):
-        raise ValueError(f"kernel grid out of range: b={b}, "
-                         f"n_tiles={n_tiles}")
-    out_s = torch.empty((n_tiles, b, t_per_tile), dtype=torch.float32,
-                        device=emb.device)
-    out_i = torch.empty((n_tiles, b, t_per_tile), dtype=torch.int32,
-                        device=emb.device)
-    lib = _kernel_lib()
-    with torch.cuda.device(emb.device):
-        rc = lib.topt_int8r2_launch(
-            qv1.data_ptr(), qs1.data_ptr(), qv2.data_ptr(), qs2.data_ptr(),
-            emb.data_ptr(), es.data_ptr(), b, d, n_rows, int(valid_n),
-            tile_n, t_per_tile, out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(emb.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"topt_int8r2 launch failed: cudaError {rc}")
+    n_tiles = _check_launch(b, d, n_rows, tile_n, (qv1, qv2, emb))
+    out = _launch(
+        "topt_int8r2", _kernel_libs()["topt_int8r2"].topt_int8r2_launch,
+        (qv1.data_ptr(), qs1.data_ptr(), qv2.data_ptr(), qs2.data_ptr(),
+         emb.data_ptr(), es.data_ptr(), b, d, n_rows, int(valid_n), tile_n,
+         t_per_tile), b, n_tiles, t_per_tile, emb.device)
     scan_topt_int8r2.launches += 1
-    return out_s, out_i
+    return out
 
 
 scan_topt_int8r2.launches = 0
+
+
+# ------------------------------------------------------------- dense scan
+DENSE_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _check_dense_args(q, emb, valid_n, tile_n, t_per_tile):
+    if q.dtype != torch.float32:
+        raise TypeError(f"queries must be float32, got {q.dtype}")
+    if emb.dtype not in DENSE_DTYPES:
+        raise TypeError(f"index rows must be one of {DENSE_DTYPES}, got "
+                        f"{emb.dtype}")
+    if q.device != emb.device:
+        raise ValueError(f"queries on {q.device}, index on {emb.device}")
+    if q.dim() != 2 or emb.dim() != 2 or q.shape[1] != emb.shape[1]:
+        raise ValueError(f"shape mismatch: queries {tuple(q.shape)}, index "
+                         f"{tuple(emb.shape)}")
+    if not (q.is_contiguous() and emb.is_contiguous()):
+        raise ValueError("queries and index rows must be contiguous")
+    if not 0 <= valid_n <= emb.shape[0]:
+        raise ValueError(f"valid_n {valid_n} outside [0, {emb.shape[0]}]")
+    if not 1 <= t_per_tile <= tile_n:
+        raise ValueError(f"t_per_tile {t_per_tile} outside [1, {tile_n}]")
+
+
+def split_hilo_bf16(q: torch.Tensor):
+    """f32 -> (hi, lo) bf16 with hi + lo == q to ~17 bits: hi = bf16(q),
+    lo = bf16(q - hi), both rounded to nearest (the JAX package's
+    ``_split_hilo_bf16`` truncates hi by masking, which XLA cannot fold
+    away; PyTorch runs the round trip as written)."""
+    hi = q.to(torch.bfloat16)
+    return hi, (q - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+def scan_topt_dense_plain(q, emb, valid_n: int, tile_n: int,
+                          t_per_tile: int):
+    """Plain PyTorch version of kernel B3: an f32 matmul of the f32 query
+    against the rows cast to f32 (TF32 off on the card), the valid-count
+    mask and the per-tile top-T of ``_tile_topt_plain``."""
+    _check_dense_args(q, emb, valid_n, tile_n, t_per_tile)
+    if q.device.type == "cuda":
+        exact_f32_matmul()
+
+    def score_rows(lo, hi):
+        return q @ emb[lo:hi].to(torch.float32).T
+
+    return _tile_topt_plain(score_rows, q.shape[0], emb.shape[0], valid_n,
+                            tile_n, t_per_tile, emb.device)
+
+
+def scan_topt_dense(q, emb, valid_n: int, tile_n: int, t_per_tile: int):
+    """Dense scan + per-tile top-T emit -> (scores, ids), each
+    (ceil(N / tile_n), B, T).
+
+    q (B, d) f32; emb (N, d) bf16 or f32 rows; columns at or past
+    ``valid_n`` score NEG_INF. CPU tensors take the plain version; CUDA
+    tensors launch ``csrc/topt_dense.cu`` (and count it in
+    ``scan_topt_dense.launches``) or raise — there is no fallback. For bf16
+    rows the query goes in as its (hi, lo) bf16 split."""
+    if emb.device.type == "cpu":
+        return scan_topt_dense_plain(q, emb, valid_n, tile_n, t_per_tile)
+    if emb.device.type != "cuda":
+        raise ValueError(f"unsupported device {emb.device}")
+    _check_dense_args(q, emb, valid_n, tile_n, t_per_tile)
+    b, d = q.shape
+    n_rows = emb.shape[0]
+    lib = _kernel_libs()["topt_dense"]
+    if emb.dtype == torch.bfloat16:
+        qh, ql = split_hilo_bf16(q)
+        n_tiles = _check_launch(b, d, n_rows, tile_n, (qh, ql, emb))
+        fn, ptrs = lib.topt_dense_bf16_launch, (qh.data_ptr(),
+                                                ql.data_ptr())
+    else:
+        n_tiles = _check_launch(b, d, n_rows, tile_n, (q, emb))
+        fn, ptrs = lib.topt_dense_f32_launch, (q.data_ptr(),)
+    out = _launch("topt_dense", fn,
+                  (*ptrs, emb.data_ptr(), b, d, n_rows, int(valid_n), tile_n,
+                   t_per_tile), b, n_tiles, t_per_tile, emb.device)
+    scan_topt_dense.launches += 1
+    return out
+
+
+scan_topt_dense.launches = 0
+
+
+def mips_topk_dense_t(
+    queries: torch.Tensor,   # (B, d)
+    emb_rows: torch.Tensor,  # (N, d) bf16 or f32
+    k: int,
+    *,
+    valid_n: int | None = None,
+    pool_n: int | None = None,
+    tile_n: int = 256,
+    t_per_tile: int = 4,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused MIPS over a dense index (counterpart of
+    ``mips_topk_pallas2_t``): per-tile top-T scan, then the exact top-k
+    merge -> (scores (B, k) f32, ids (B, k) int32).
+
+    ``valid_n`` masks rows at or past it (runtime count); ``pool_n`` is a
+    lower bound on valid rows for the per-tile pool depth. ``tile_n`` is the
+    emit tile: 256 against the TPU's 2048 (a tile of scores has to fit one
+    block's shared memory), clamped to ``round_up(N, 128)``."""
+    b = queries.shape[0]
+    n = emb_rows.shape[0]
+    k = min(k, n)
+    valid_n = n if valid_n is None else int(valid_n)
+    tile_n, t = scan_geometry(n, k, pool_n, tile_n, t_per_tile)
+    cand_s, cand_i = scan_topt_dense(
+        queries.to(torch.float32).contiguous(), emb_rows, valid_n, tile_n, t)
+    cand_s = cand_s.permute(1, 0, 2).reshape(b, -1)
+    cand_i = cand_i.permute(1, 0, 2).reshape(b, -1)
+    return _merge_candidates(cand_s, cand_i, k, b)
 
 
 # ------------------------------------------------------- merge and refine
@@ -264,9 +434,7 @@ def mips_topk_int8r_t(
     k = min(k, n)
     k_sel = min(refine * k, n)
     valid_n = n if valid_n is None else int(valid_n)
-    tile_n = min(tile_n, _round_up(n, 128))
-    t = _pool_t(k_sel, min(n, pool_n if pool_n is not None else n),
-                tile_n, t_per_tile)
+    tile_n, t = scan_geometry(n, k_sel, pool_n, tile_n, t_per_tile)
     q = queries.to(torch.float32)
     qv1, qs1, qv2, qs2 = quantize_int8_residual(q)
     cand_s, cand_i = scan_topt_int8r2(qv1, qs1, qv2, qs2, emb_rows,

@@ -1,13 +1,20 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 These tests need a CUDA device and skip without one. They import torch
 only, so they also run where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance: the kernel and the plain version do the same f32 arithmetic (the
-int8 products are exact integers in both), so candidate scores agree to
-1e-5 relative and ids are equal except among tied scores."""
+Tolerances. B1 (int8r): the kernel and the plain version do the same f32
+arithmetic (the int8 products are exact integers in both), so candidate
+scores agree to 1e-5 relative and ids are equal except among tied scores.
+B3 (dense): the bf16 kernel scores the (hi, lo) bf16 split of the f32 query,
+which leaves <= 2^-18 * sum|q_i x_i| per score, and sums in another order
+than cuBLAS's f32 product; for unit-norm rows and queries the scores agree
+to 1e-4 absolute at bf16 and 1e-5 at f32. Ids are equal except among
+candidates whose scores lie within that tolerance of each other: where the
+ids differ, the kernel's row scores within twice the tolerance of the plain
+version's row."""
 
 import numpy as np
 import pytest
@@ -101,5 +108,93 @@ def test_search_on_card_matches_cpu(cuda):
         valid_n=4900)
     np.testing.assert_allclose(gs.cpu().numpy(), cs.numpy(), rtol=1e-5,
                                atol=1e-5)
+    assert (gi[:, 0].cpu() == torch.arange(b)).all()
+    assert int(gi.max()) < 4900
+
+
+def _unit(g, shape, dev):
+    x = torch.randn(shape, generator=g, device=dev)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def _assert_dense_close(q, emb, ks, ki, ps, pi, atol):
+    ks, ki, ps, pi = (x.cpu().numpy() for x in (ks, ki, ps, pi))
+    live = pi >= 0
+    assert (ki >= 0).tolist() == live.tolist()  # same exhausted slots
+    np.testing.assert_allclose(ks[live], ps[live], rtol=0, atol=atol)
+    assert (ks[~live] == ps[~live]).all()
+    # where the ids differ, the kernel's row must score (in f64, on the
+    # stored values) within the tolerance of the plain version's row
+    where = np.argwhere(ki != pi)
+    if len(where):
+        rows = torch.from_numpy(ki[tuple(where.T)].astype(np.int64))
+        true = (q.double().cpu()[torch.from_numpy(where[:, 1])]
+                * emb[rows.to(emb.device)].double().cpu()).sum(-1).numpy()
+        np.testing.assert_allclose(true, ps[tuple(where.T)], rtol=0,
+                                   atol=2 * atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("bfloat16", 1e-4),
+                                        ("float32", 1e-5)])
+@pytest.mark.parametrize("b,n,nv,d,k_sel", [
+    (64, 8192, 8000, 1024, 400),
+    (8, 20_000, 19_990, 1024, 40),   # the eval batch: one 32-row tile
+    (5, 4099, 3000, 256, 4096),      # the demo's d; pool > valid rows
+    (33, 777, 700, 256, 50),         # B not a multiple of 16
+    (3, 100, 90, 16, 7),             # N <= 128: the tile clamps to 128
+    (17, 2048, 300, 64, 400),        # mostly padded tiles: -1 slots
+])
+def test_dense_kernel_matches_plain(cuda, dtype, atol, b, n, nv, d, k_sel):
+    g = torch.Generator(device=cuda).manual_seed(b + n + d)
+    emb = _unit(g, (n, d), cuda).to(getattr(torch, dtype))
+    q = _unit(g, (b, d), cuda)
+    tile = min(256, tp2._round_up(n, 128))
+    t = tp2._pool_t(k_sel, nv, tile, 4)
+    before = tp2.scan_topt_dense.launches
+    ks, ki = tp2.scan_topt_dense(q, emb, nv, tile, t)
+    ps, pi = tp2.scan_topt_dense_plain(q, emb, nv, tile, t)
+    torch.cuda.synchronize()
+    assert tp2.scan_topt_dense.launches == before + 1
+    assert ks.shape == (-(-n // tile), b, t) and ki.dtype == torch.int32
+    assert int(ki.max()) < nv
+    _assert_dense_close(q, emb, ks, ki, ps, pi, atol)
+
+
+@pytest.mark.cuda
+def test_dense_kernel_grid_past_65535_index_tiles(cuda):
+    """65,538 index tiles of 128 rows on the one-dimensional grid, bf16,
+    with two query tiles; d = 16 keeps the 8.4M-row index at 268 MB."""
+    tile, d, b = 128, 16, 40
+    n = 65_537 * tile + 5
+    nv = n - 3
+    g = torch.Generator(device=cuda).manual_seed(13)
+    emb = _unit(g, (n, d), cuda).to(torch.bfloat16)
+    q = _unit(g, (b, d), cuda)
+    t = tp2._pool_t(400, nv, tile, 4)
+    ks, ki = tp2.scan_topt_dense(q, emb, nv, tile, t)
+    ps, pi = tp2.scan_topt_dense_plain(q, emb, nv, tile, t)
+    torch.cuda.synchronize()
+    assert ks.shape == (-(-n // tile), b, t)
+    tail = ki[65_535:]
+    assert int(tail[tail >= 0].min()) >= 65_535 * tile
+    assert int(ki.max()) < nv
+    _assert_dense_close(q, emb, ks, ki, ps, pi, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dense_search_on_card_matches_cpu(cuda, dtype):
+    """``mips_topk_dense_t`` on the card returns the CPU path's (plain
+    scan) top-k for the same rows, gold top-1 included."""
+    g = torch.Generator().manual_seed(5)
+    n, d, b, k = 5000, 256, 9, 50
+    e = torch.randn((n, d), generator=g)
+    e = (e / e.norm(dim=1, keepdim=True)).to(getattr(torch, dtype))
+    q = e[:b].float() + 0.01 * torch.randn((b, d), generator=g)
+    cs, ci = tp2.mips_topk_dense_t(q, e, k, valid_n=4900)
+    gs, gi = tp2.mips_topk_dense_t(q.to(cuda), e.to(cuda), k, valid_n=4900)
+    np.testing.assert_allclose(gs.cpu().numpy(), cs.numpy(), rtol=0,
+                               atol=1e-4)
     assert (gi[:, 0].cpu() == torch.arange(b)).all()
     assert int(gi.max()) < 4900
