@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch port: one CUDA card, the index-serving path and
-the evaluate path at full width, every kernel of those paths against its
-plain PyTorch version.
+"""Chip smoke of the PyTorch port: one CUDA card, the index-serving path,
+the evaluate path and the jsa training path at full width, every kernel of
+those paths against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the repository root, one card
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. environment — the card's name and power limit, CUDA present, TF32 off;
-2. build — ``nvcc`` builds every kernel (B1 ``topt_int8r2``, B3
-   ``topt_dense``) from ``csrc/``, one process per source, concurrently;
+2. build — ``nvcc`` builds every kernel (B1 ``topt_int8r2`` and B2
+   ``topt_int8``, one template in ``topt_int8r2.cu``; B3 ``topt_dense``)
+   from ``csrc/``, one process per source, concurrently;
 3. B1 against its plain version on the card, at the index-tile shapes the
    serve path gives it (d=1024, N=262,144 with 777 padded rows, B=64, 400
    candidates; and B=5, N=4099 with more candidates than valid rows);
@@ -60,7 +61,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    with CUDA events at the eval shape (B=8, T from k=10) and at B=64 and
    B=512, beside the plain version (B=64), one ``torch.matmul`` of the bf16
    query against the rows (the bare product, no mask or top-T) and its
-   bound; ``index.search`` per call at B=8 and B=64.
+   bound; ``index.search`` per call at B=8 and B=64;
+10. B2 against its plain version on the card: d=1024, N=262,144 with 777
+    padded rows, B=2 (the train step's prior + posterior queries) and 64,
+    40 candidates (refine_r * k); B=5, N=4,099 with more candidates than
+    valid rows; then one search through each of the int8, int8r rows1 and
+    int8r cols branches of ``mips_topk_int8_t``, held to the CPU path;
+11. training at full width — a hybrid index of 1,300,000 x 1024 (the first
+    16,384 rows from the initial passage tower, the rest clustered; the f32
+    rows kept for the oracle) saved, 64 training questions, then
+    ``python -m jsa_rag_tpu_torch.train``'s ``main`` with the flagship NQ
+    jsa options (``egs/NaturalQuestions/jsa/run.sh``; bge-large towers, the
+    ~1B generator with LoRA, bf16, f32 params) and ``--load_index_path``,
+    cut for time to 8 steps (flagship 20,000) with 2 warmup steps (1,000),
+    ``--save_freq 8 --log_freq 1 --log_detail_num 2`` and no eval: B2's
+    launches during ``main``, recall@10 of main's own searches against the
+    exact f32 oracle, B2 against its plain version on main's first scan,
+    every step's loss, generator loss and accept rate, each step's wall
+    time split by the loop's ``runtime/*`` stats and its device time (CUDA
+    events around main's own train step), peak memory; then the saved
+    checkpoint: generator base and posterior passage tower bit-identical to
+    the initial weights, the prior passage tower the initial weights times
+    prod(1 - lr_t * wd), every other trainable leaf moved;
+12. the in-loop refresh at full width on the 16,384 text passages: ``main``
+    without ``--load_index_path``, ``--refresh_index 0-4:2 --total_steps
+    3`` (the initial build, then a refresh at step 2): each build's time, a
+    sample of 256 stored rows against a fresh passage-tower embedding under
+    the final weights, the derived int8 copy rebuilt;
+13. B2 timed with CUDA events at B=2, 64 and 512 on the 1.3M-row coarse
+    copy, beside its plain version (B=64), ``torch._int_mm`` of the same
+    int8 operands (the bare product) and its bound.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, the ``kernels`` JSON object and
@@ -101,6 +131,29 @@ DEMO_EM_BAR = 0.945  # the JAX package recorded 0.955 on the same data
 # than cuBLAS; the f32 kernel is an FMA loop against cuBLAS's f32 product
 # (d * 2^-24 ~ 1.5e-5 worst case at d=256, ~1e-6 typical)
 DENSE_RTOL = {"bfloat16": 1e-4, "float32": 1e-5}
+# B2 against its plain version, relative to |q|·|x| of the dequantised
+# query and row: both compute (acc * qs) * es in f32 from the same int8
+# codes, so they agree bit for bit; this bound is the acceptance line
+INT8_RTOL = 1e-6
+# the flagship NQ jsa options (egs/NaturalQuestions/jsa/run.sh), cut for
+# time as the phase 11 docstring says
+FLAGSHIP = ["--task", "qa", "--qa_prompt_format", "{question}",
+            "--gold_score_mode", "jsa", "--gen_method", "fast_deocde1",
+            "--generator_model_type", "mistral", "--use_lora", "true",
+            "--lora_rank", "8", "--lora_alpha", "16",
+            "--per_gpu_batch_size", "1", "--n_context", "10",
+            "--retriever_n_context", "100", "--mis_step", "50",
+            "--use_all_mis", "true", "--unil_postandprior", "true",
+            "--temperature_gold", "1", "--temperature_score", "1",
+            "--temperature_jsa", "0.1", "--temperature_lm", "1.0",
+            "--gen_doc_scores", "0.001", "--text_maxlength", "512",
+            "--target_maxlength", "256", "--lr", "2e-5",
+            "--lr_retriever", "1e-5", "--separate_learning_rates", "true",
+            "--scheduler", "cosine", "--per_gpu_embedder_batch_size", "256",
+            "--precision", "bf16", "--save_build_retriever_step", "500",
+            "--model_size", MODEL_SIZE, "--param_dtype", "float32",
+            "--max_vocab", "32000", "--seed", str(SEED)]
+TRAIN_STEPS = 8  # flagship 20,000
 # greedy decode at bf16 against a cache-free forward: the two run the same
 # bf16 layers on different matmul shapes, so activations round differently;
 # a generated token must be the cache-free argmax or within this many nats
@@ -161,6 +214,15 @@ def int8r_bound(b: int, n_rows: int, d: int, n_tiles: int, t: int):
                  PEAK_INT8_OPS_PER_S)
 
 
+def int8_bound(b: int, n_rows: int, d: int, n_tiles: int, t: int):
+    """B2: the int8 rows and their scales read once, the query plane and
+    its scales read once, the candidates written once; 2*B*N*d int8
+    operations (one product, multiply and add)."""
+    return bound(n_rows * d + n_rows * 4 + b * d + b * 4
+                 + n_tiles * b * t * 8, 2 * b * n_rows * d,
+                 PEAK_INT8_OPS_PER_S)
+
+
 def dense_bound(b: int, n_rows: int, d: int, n_tiles: int, t: int):
     """B3 over bf16 rows: the rows read once, the query's hi and lo bf16
     planes read once, the candidates written once; 2*2*B*N*d bf16
@@ -194,6 +256,35 @@ def compare_int8r(mt, args, what: str) -> float:
     log(f"  {what}: candidates {tuple(ks.shape)}, ids equal "
         f"{int((~differ).sum())}/{differ.numel()} (rest tied), "
         f"max_abs_err {max_err:.3g}")
+    return max_err
+
+
+def compare_int8(mt, qv, qs, emb, es, nv: int, tile: int, t: int,
+                 what: str) -> float:
+    """B2 against its plain version on the same inputs; -> max abs error.
+    Ids must be equal in every slot and scores within INT8_RTOL·|q|·|x|
+    (the dequantised query and row norms)."""
+    import torch
+
+    ks, ki = mt.scan_topt_int8(qv, qs, emb, es, nv, tile, t)
+    ps, pi = mt.scan_topt_int8_plain(qv, qs, emb, es, nv, tile, t)
+    torch.cuda.synchronize()
+    if not torch.equal(ki, pi):
+        raise AssertionError(f"{what}: {int((ki != pi).sum())} candidate "
+                             f"ids differ")
+    live = pi >= 0
+    qn = (qv.float() * qs.reshape(-1, 1)).norm(dim=1)
+    rows = pi.clamp(min=0).long()
+    xn = emb[rows.reshape(-1)].float().norm(dim=1).reshape(rows.shape) \
+        * es.reshape(-1)[rows]
+    tol = INT8_RTOL * qn[None, :, None] * xn
+    err = torch.where(live, (ks - ps).abs(), 0.0)
+    if bool((err > tol).any()) or not torch.equal(ks[~live], ps[~live]):
+        raise AssertionError(f"{what}: scores differ by more than "
+                             f"{INT8_RTOL}·|q|·|x|")
+    max_err = float(err.max())
+    log(f"  {what}: candidates {tuple(ks.shape)}, ids equal "
+        f"{int((ki == pi).sum())}/{ki.numel()}, max_abs_err {max_err:.3g}")
     return max_err
 
 
@@ -311,6 +402,37 @@ def forward_times(lm):
         yield decodes
     finally:
         lm._forward_with_cache = real
+
+
+@contextlib.contextmanager
+def device_spans(targets):
+    """Bracket each call of ``owner.name`` for every (owner, name, label) in
+    ``targets`` by CUDA events; yields {label: [(start, stop), ...]}. Work
+    on one stream runs in order, so a span is that call's device time.
+    Read after a synchronise; restored on exit."""
+    import torch
+
+    spans = {label: [] for _, _, label in targets}
+    real = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+
+    def wrap(fn, label):
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            stop.record()
+            spans[label].append((start, stop))
+            return out
+        return wrapper
+
+    for (owner, name, fn), (_, _, label) in zip(real, targets):
+        setattr(owner, name, wrap(fn, label))
+    try:
+        yield spans
+    finally:
+        for owner, name, fn in real:
+            setattr(owner, name, fn)
 
 
 class BatchTimes(logging.Handler):
@@ -922,6 +1044,418 @@ def eval_phase(torch, mt, g, dev, work) -> dict:
     }
 
 
+# --------------------------------------------------------------- phase 10
+def int8_phase(torch, mt, g, dev) -> float:
+    """Phase 10; -> B2's max abs error against its plain version."""
+    log("[10] B2 against its plain version on the card")
+    max_err = 0.0
+    for bs, n, nv, k_sel in (((2, 64), 262_144, 262_144 - 777, 40),
+                             ((5,), 4099, 3000, 4096)):
+        v, s = mt.quantize_int8(torch.randn((n, DIM), generator=g,
+                                            device=dev))
+        t = mt._pool_t(k_sel, nv, 256, 4)
+        for b in bs:
+            qv, qs = mt.quantize_int8(torch.randn((b, DIM), generator=g,
+                                                  device=dev))
+            max_err = max(max_err, compare_int8(
+                mt, qv, qs, v, s.reshape(1, -1), nv, 256, t,
+                f"B={b} N={n} valid={nv} k_sel={k_sel} T={t}"))
+        del v, s
+    torch.cuda.empty_cache()
+    # one search through each B2 branch of the wrapper, held to the CPU
+    # path (the plain scan) on the same planes
+    n, nv, b, k = 65_536, 65_000, 8, 10
+    e = torch.randn((n, DIM), generator=g, device=dev)
+    e /= e.norm(dim=1, keepdim=True)
+    q = e[:b] + 0.05 * torch.randn((b, DIM), generator=g, device=dev)
+    v1, s1, v2, s2 = mt.quantize_int8_residual(e)
+    v, s = mt.quantize_int8(e)
+    for name, ops, kw in (
+            ("int8", (v, s.reshape(1, -1)), {}),
+            ("int8r rows1", (v1, s1.reshape(1, -1)),
+             dict(refine=4, res_rows=v2, res_scale=s2.reshape(1, -1),
+                  int8r_refine="rows1")),
+            ("int8r cols", (v1, s1.reshape(1, -1)),
+             dict(refine=4, res_rows=v2, res_scale=s2.reshape(1, -1),
+                  int8r_refine="cols"))):
+        before = mt.scan_topt_int8.launches
+        gs, gi = mt.mips_topk_int8_t(q, *ops, k, valid_n=nv, **kw)
+        if mt.scan_topt_int8.launches != before + 1:
+            raise AssertionError(f"{name}: the search did not launch B2")
+        cs, ci = mt.mips_topk_int8_t(
+            q.cpu(), *(o.cpu() for o in ops), k, valid_n=nv,
+            **{a: (x.cpu() if torch.is_tensor(x) else x)
+               for a, x in kw.items()})
+        err = float((gs.cpu() - cs).abs().max())
+        if not torch.equal(gi.cpu(), ci) or err > 1e-5:
+            raise AssertionError(f"{name}: card and CPU searches differ "
+                                 f"(max abs err {err:.3g})")
+        log(f"  {name} search B={b} N={n} valid={nv} k={k}: ids equal to "
+            f"the CPU path's, max abs score diff {err:.3g}, gold top-1 "
+            f"{int((gi[:, 0] == torch.arange(b, device=dev)).sum())}/{b}")
+    return max_err
+
+
+# ------------------------------------------------------------ phases 11-13
+def _leaf_groups(tree_init, tree_final):
+    """-> {path: (init, final)} over the flattened param trees."""
+    def flat(t, prefix=()):
+        if isinstance(t, dict):
+            return {p: v for k, x in t.items()
+                    for p, v in flat(x, prefix + (str(k),)).items()}
+        if isinstance(t, list):
+            return {p: v for i, x in enumerate(t)
+                    for p, v in flat(x, prefix + (str(i),)).items()}
+        return {prefix: t}
+    fi, ff = flat(tree_init), flat(tree_final)
+    if set(fi) != set(ff):
+        raise AssertionError("checkpoint leaves differ from the init's")
+    return {p: (fi[p], ff[p]) for p in fi}
+
+
+def check_invariants(np, init, final, opt) -> dict:
+    """The checkpoint against the initial weights: the generator base and
+    the posterior passage tower bit-identical; the prior passage tower (no
+    gradient under jsa; decayed by AdamW) equal to init * prod(1 - lr_t *
+    wd); every other trainable leaf moved."""
+    from jsa_rag_tpu_torch.utils.schedulers import make_lr_schedule
+
+    sched = make_lr_schedule(opt.scheduler, opt.lr_retriever,
+                             opt.warmup_steps,
+                             opt.scheduler_steps or opt.total_steps)
+    decay = np.float32(1.0)
+    for c in range(opt.total_steps):
+        decay *= np.float32(1.0) - np.float32(float(sched(c))) * np.float32(
+            opt.weight_decay)
+    counts = {"frozen_identical": 0, "decayed": 0, "moved": 0}
+    worst = 0.0
+    for path, (a, b) in _leaf_groups(init, final).items():
+        if path[0] == "generator" or path[:2] == ("post_retriever",
+                                                  "passage"):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"frozen leaf {path} changed")
+            counts["frozen_identical"] += 1
+        elif path[:2] == ("retriever", "passage"):
+            want = a * decay
+            err = np.abs(b - want) / np.maximum(np.abs(want), 1e-30)
+            worst = max(worst, float(err.max()))
+            if float(err.max()) > 2e-6:
+                raise AssertionError(f"{path} is not init * decay "
+                                     f"({float(err.max()):.3g} relative)")
+            counts["decayed"] += 1
+        else:
+            if np.array_equal(a, b):
+                raise AssertionError(f"trainable leaf {path} did not move")
+            counts["moved"] += 1
+    counts["decay_factor"] = float(decay)
+    counts["decay_max_rel_err"] = worst
+    return counts
+
+
+def train_phase(torch, mt, g, dev, work) -> dict:
+    """Phases 11-13; -> B2's numbers for the kernels line."""
+    import numpy as np
+
+    from jsa_rag_tpu_torch.config import Options
+    from jsa_rag_tpu_torch.convert import params_to_numpy
+    from jsa_rag_tpu_torch.data import PassageStore
+    from jsa_rag_tpu_torch.index import flat
+    from jsa_rag_tpu_torch.index.flat import ShardedFlatIndex
+    from jsa_rag_tpu_torch.model_io import load_or_initialize_model
+    from jsa_rag_tpu_torch.train import __main__ as train_cli
+    from jsa_rag_tpu_torch.train import loop, modes
+    from jsa_rag_tpu_torch.train.checkpoint import load_checkpoint
+    from jsa_rag_tpu_torch.train.optim import AdamW
+    from jsa_rag_tpu_torch.train.rag_model import RAGModel
+
+    log(f"[11] jsa training at full width: bge-large towers, ~1B llama/GQA "
+        f"generator (bf16, LoRA), hybrid index {N_INDEX} x {DIM}")
+    t0 = time.perf_counter()
+    store = PassageStore.synthetic(N_TEXT, seed=SEED)
+    passages = os.path.join(work, "passages.jsonl")
+    if not os.path.exists(passages):
+        write_passages(passages, store)
+    train_data = os.path.join(work, "train.jsonl")
+    rows = torch.randperm(N_TEXT, generator=torch.Generator().manual_seed(
+        SEED + 2))[:64].tolist()
+    with open(train_data, "w") as f:
+        for i in rows:
+            words = store[i]["text"].split()
+            f.write(json.dumps({"question": " ".join(words[:6]),
+                                "answers": [" ".join(words[6:8])]}) + "\n")
+    argv = FLAGSHIP + [
+        "--device", dev.type, "--index_dtype", "hybrid",
+        "--passages", passages, "--train_data", train_data,
+        "--checkpoint_dir", os.path.join(work, "ck"),
+        "--total_steps", str(TRAIN_STEPS), "--warmup_steps", "2",
+        "--save_freq", str(TRAIN_STEPS), "--log_freq", "1",
+        "--log_detail_num", "2", "--eval_freq", "1000000",
+        "--refresh_index", "0-40000:40000"]
+    log(f"  cut for time: --total_steps {TRAIN_STEPS} (flagship 20,000), "
+        f"--warmup_steps 2 (1,000), --save_freq {TRAIN_STEPS} --log_freq 1 "
+        f"--log_detail_num 2, no eval")
+    build_argv = argv + ["--name", "build"]
+    model, params, _ = load_or_initialize_model(Options.from_args(build_argv),
+                                                store)
+    init = params_to_numpy(params)  # the initial weights, on the host
+    index = ShardedFlatIndex(N_INDEX, DIM, "hybrid", device=dev)
+    e32 = torch.empty((N_INDEX, DIM), dtype=torch.float32, device=dev)
+    stats = model.build_index(KeepFloats(index, e32), params)
+    log(f"  initial weights from --seed {SEED}; build_index over {N_TEXT} "
+        f"passages: {stats['runtime/indexing'][0]:.1f} s")
+    fill_clustered(torch, g, index, e32, N_TEXT, N_INDEX)
+    index.save(os.path.join(work, "index_hybrid"), n_files=16)
+    del model, params, index
+    e32 = e32.cpu()  # off the card while main trains
+    torch.cuda.empty_cache()
+    log(f"  clustered rows and save: {time.perf_counter() - t0:.1f} s")
+
+    argv += ["--load_index_path", os.path.join(work, "index_hybrid"),
+             "--name", "train-full"]
+    step_events = []
+    real_make = loop.make_train_step
+
+    def timed_make(*a, **kw):
+        step_fn = real_make(*a, **kw)
+
+        def timed(*sa, **skw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step_fn(*sa, **skw)
+            stop.record()
+            step_events.append((start, stop))
+            return out
+        return timed
+
+    loop.make_train_step = timed_make
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_accumulated_memory_stats()
+    t0 = time.perf_counter()
+    # where a step's device time goes: the union passage embeddings and the
+    # generator CE (forward), the backward, the optimizer update; the rest
+    # of the step is the query embeddings, the scores and the MIS chain
+    parts = [(modes, "_embed_rows", "union embed"),
+             (modes, "_per_row_ce", "generator CE"),
+             (torch.autograd, "grad", "backward"),
+             (AdamW, "step", "optimizer")]
+    try:
+        with recording(flat, "mips_topk_int8_t") as searches, \
+                device_spans(parts) as spans:
+            mt.scan_topt_int8.launches = 0  # main path starts
+            final_step = train_cli.main(argv)
+            launches = mt.scan_topt_int8.launches  # main path ends
+    finally:
+        loop.make_train_step = real_make
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    # allocations the caching allocator retried after freeing its cache
+    # (each retry frees with cudaFree, which waits for the device)
+    retries = torch.cuda.memory_stats()["num_alloc_retries"]
+    device_ms = [a.elapsed_time(b) for a, b in step_events]
+    part_ms = {k: [a.elapsed_time(b) for a, b in v]
+               for k, v in spans.items()}
+    del spans
+    run = os.path.join(work, "ck", "train-full")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    log(f"  train main: {main_s:.1f} s, {final_step} steps, B2 launches "
+        f"{launches}; peak memory {peak / 2**30:.2f} GiB of "
+        f"{total / 2**30:.2f} GiB, allocator retries {retries}")
+    if final_step != TRAIN_STEPS or launches < 1:
+        raise AssertionError("training did not run its steps through B2")
+    if len(metrics) != TRAIN_STEPS or len(device_ms) != TRAIN_STEPS:
+        raise AssertionError(f"{len(metrics)} metric lines, "
+                             f"{len(device_ms)} timed steps")
+    if any(len(v) != TRAIN_STEPS for v in part_ms.values()):
+        raise AssertionError(f"device spans per part: "
+                             f"{ {k: len(v) for k, v in part_ms.items()} }")
+    steps = []
+    for n, (m, dms) in enumerate(zip(metrics, device_ms)):
+        for k in ("loss/train_loss", "loss/generator_loss", "accept_rate"):
+            if not math.isfinite(m[k]):
+                raise AssertionError(f"step {m['step']}: {k} = {m[k]}")
+        split = {k.removeprefix("runtime/"): v for k, v in m.items()
+                 if k.startswith("runtime/")}
+        steps.append({"step": m["step"], "loss": m["loss/train_loss"],
+                      "generator_loss": m["loss/generator_loss"],
+                      "accept_rate": m["accept_rate"], "wall_s": split,
+                      "device_ms": dms,
+                      "device_parts_ms": {k: v[n] for k, v in
+                                          part_ms.items()}})
+        log(f"  step {m['step']}: loss {m['loss/train_loss']:.4f}, "
+            f"generator loss {m['loss/generator_loss']:.4f}, accept rate "
+            f"{m['accept_rate']:.3f}; wall " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in split.items())
+            + f"; device {dms:.1f} ms (" + ", ".join(
+                f"{k} {v[n]:.1f}" for k, v in part_ms.items())
+            + f", rest {dms - sum(v[n] for v in part_ms.values()):.1f})")
+
+    # main's own searches: recall@10 against exact f32 over the original
+    # rows, and B2 against its plain version on the first scan's inputs
+    q = torch.cat([args[0] for args, _, _ in searches]).float()
+    got = torch.cat([out[1][:, :10] for _, _, out in searches])
+    r10 = recall_against_oracle(torch, q.cpu(), got.cpu(), e32, 10)
+    log(f"  recall@10 of main's {q.shape[0]} retrieve_pair queries against "
+        f"exact f32 over the original rows: {r10:.4f}")
+    if r10 < RECALL_BAR:
+        raise AssertionError(f"recall@10 {r10:.4f} < {RECALL_BAR}")
+    (q0, codes, scales, k0), kw0, _ = searches[0]
+    tile, t0_ = mt.scan_geometry(codes.shape[0],
+                                 min(kw0["refine"] * k0, codes.shape[0]),
+                                 kw0["pool_n"])
+    qv, qs = mt.quantize_int8(q0.float())
+    max_err = compare_int8(mt, qv, qs, codes, scales, kw0["valid_n"], tile,
+                           t0_, f"main's first scan: B={q0.shape[0]} "
+                           f"N={codes.shape[0]} valid={kw0['valid_n']} "
+                           f"k={k0} refine={kw0['refine']} T={t0_}")
+    sidx_codes, sidx_scales, n_valid = codes, scales, kw0["valid_n"]
+    del searches, q0, kw0
+
+    # the checkpoint main saved at its last step
+    state = load_checkpoint(run)
+    opt = Options.from_args(argv)
+    inv = check_invariants(np, init, state["params"], opt)
+    log(f"  checkpoint step {state['step']}: {inv['frozen_identical']} "
+        f"frozen leaves bit-identical (generator base, posterior passage "
+        f"tower), {inv['decayed']} prior passage-tower leaves = init x "
+        f"{inv['decay_factor']:.9f} (max rel err "
+        f"{inv['decay_max_rel_err']:.3g}), {inv['moved']} trainable leaves "
+        f"moved")
+    del state, init
+    shutil.rmtree(os.path.join(work, "ck"), ignore_errors=True)
+
+    # --------------------------------------------------- 12 in-loop refresh
+    log(f"[12] in-loop refresh at full width over the {N_TEXT} text "
+        f"passages (cut from {N_INDEX}: re-embedding 1.3M rows would take "
+        f"~20 min)")
+    text_passages = os.path.join(work, "passages_text.jsonl")
+    with open(text_passages, "w") as f:
+        for i in range(N_TEXT):
+            f.write(json.dumps(store[i]) + "\n")
+    argv12 = FLAGSHIP + [
+        "--device", dev.type, "--index_dtype", "hybrid",
+        "--passages", text_passages, "--train_data", train_data,
+        "--checkpoint_dir", os.path.join(work, "ck"), "--name", "refresh",
+        "--total_steps", "3", "--warmup_steps", "2", "--save_freq", "1000",
+        "--log_freq", "1", "--eval_freq", "1000000",
+        "--refresh_index", "0-4:2"]
+    builds = []
+    real_build = RAGModel.build_index
+
+    def timed_build(self, index, params, iter_stats=None):
+        t = time.perf_counter()
+        out = real_build(self, index, params, iter_stats)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t)
+        return out
+
+    RAGModel.build_index = timed_build
+    try:
+        with recording(train_cli, "train") as runs:
+            train_cli.main(argv12)
+    finally:
+        RAGModel.build_index = real_build
+    (rmodel, rindex, rparams, _, ropt), _, _ = runs[0]
+    with open(os.path.join(work, "ck", "refresh", "metrics.jsonl")) as f:
+        rmetrics = [json.loads(line) for line in f]
+    refreshed = [m["step"] for m in rmetrics if "runtime/indexing" in m]
+    log(f"  index builds: initial {builds[0]:.1f} s, then at steps "
+        f"{refreshed}: " + ", ".join(f"{b:.1f} s" for b in builds[1:])
+        + " (runtime/indexing " + ", ".join(
+            f"{m['runtime/indexing']:.1f} s" for m in rmetrics
+            if "runtime/indexing" in m) + ")")
+    if len(builds) != 2 or refreshed != [2]:
+        raise AssertionError(f"builds {builds}, refreshed at {refreshed}")
+    sample = torch.randperm(N_TEXT, generator=torch.Generator().manual_seed(
+        SEED + 3))[:256]
+    from jsa_rag_tpu_torch.data.passages import format_passage
+
+    ids, mask = rmodel.retriever_tokenizer.encode_batch(
+        [format_passage(store[int(i)], ropt.retriever_format)
+         for i in sample], rmodel._retriever_max_len())
+    with torch.no_grad():
+        fresh = rparams["retriever"].embed_passages(
+            torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev))
+    stored = rindex.embeddings[sample.to(dev)].float()
+    row_err = float((stored - fresh.float()).abs().max())
+    codes, scales = rindex.hybrid_copies()
+    want_v, want_s = mt.hybrid_int8_from_f16(rindex.embeddings)
+    rebuilt = (rindex.hybrid_derivations >= 2
+               and torch.equal(codes, want_v)
+               and torch.equal(scales[0], want_s))
+    log(f"  256 stored rows against a fresh passage-tower embedding under "
+        f"the final weights: max abs err {row_err:.3g}; the int8 coarse "
+        f"copy derived {rindex.hybrid_derivations} times, equal to the "
+        f"stored rows' quantisation: {rebuilt}")
+    if row_err > 1e-3:
+        raise AssertionError(f"stored rows off by {row_err:.3g}")
+    if not rebuilt:
+        raise AssertionError("the hybrid coarse copy was not rebuilt")
+    refresh = {"build_s": builds, "refresh_steps": refreshed,
+               "row_max_abs_err": row_err,
+               "derivations": rindex.hybrid_derivations}
+    del runs, rmodel, rindex, rparams, fresh, codes, scales, want_v
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ 13 times
+    log("[13] B2 timing on the 1.3M-row coarse copy")
+    e32 = e32.to(dev)
+    n_rows = sidx_codes.shape[0]
+    n_tiles = -(-n_rows // 256)
+    _, t_train = mt.scan_geometry(n_rows, 40, n_valid)
+    timing = {}
+    for b in (2, 64, 512):
+        qv, qs = mt.quantize_int8(e32[torch.randint(
+            0, N_INDEX, (b,), generator=g, device=dev)])
+        ms = cuda_ms(lambda: mt.scan_topt_int8(qv, qs, sidx_codes,
+                                               sidx_scales, n_valid, 256,
+                                               t_train), 20)
+        # torch._int_mm takes more than 16 rows: B=2 runs padded to 32
+        qpad = qv if b > 16 else torch.cat(
+            [qv, qv.new_zeros((32 - b, DIM))])
+        lib_ms = cuda_ms(lambda: torch._int_mm(qpad, sidx_codes.t()), 5)
+        bound_ms, bound_by = int8_bound(b, n_rows, DIM, n_tiles, t_train)
+        timing[b] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms, "T": t_train}
+        if b == 64:
+            plain_ms = cuda_ms(lambda: mt.scan_topt_int8_plain(
+                qv, qs, sidx_codes, sidx_scales, n_valid, 256, t_train), 3,
+                warmup=1)
+        log(f"  B={b} T={t_train}: B2 {ms:.3f} ms, bound {bound_ms:.3f} ms "
+            f"({bound_by}), torch._int_mm {lib_ms:.3f} ms"
+            + (" (32 rows)" if b <= 16 else ""))
+    log(f"  B=64 plain version {plain_ms:.3f} ms")
+    main64 = timing[64]
+    return {
+        "name": "topt_int8",
+        "route": "cuda",
+        "source": "jsa_rag_tpu_torch/csrc/topt_int8r2.cu",
+        "replaces": "jsa_rag_tpu/ops/mips_pallas2.py:769",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": main64["ms"],
+        "plain_ms": plain_ms,
+        "bound_ms": main64["bound_ms"],
+        "bound_by": main64["bound_by"],
+        "library_ms": main64["library_ms"],
+        "shape": {"B": 64, "N": n_rows, "d": DIM, "tile_n": 256,
+                  "T": t_train},
+        "at_B2": timing[2],
+        "at_B512": timing[512],
+        "recall_at_10": r10,
+        "train_steps": steps,
+        "train_main_s": main_s,
+        "peak_memory_bytes": peak,
+        "alloc_retries": retries,
+        "card_memory_bytes": total,
+        "checkpoint": inv,
+        "refresh": refresh,
+    }
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---------------------------------------------------------- 1 environment
@@ -977,6 +1511,7 @@ def main() -> None:
     try:
         b1 = serve_phase(torch, mt, g, dev, work)
         b1["max_abs_err"] = max(b1["max_abs_err"], max_err)
+        shutil.rmtree(os.path.join(work, "index"), ignore_errors=True)
         torch.cuda.empty_cache()
         dense_err, auto_rule = dense_phase(torch, mt, g, dev)
         demo = demo_phase(torch, mt, dev, work)
@@ -986,12 +1521,17 @@ def main() -> None:
                                 demo["max_abs_err"])
         b3["hard_copy_demo"] = demo
         b3["auto_rule"] = auto_rule
+        shutil.rmtree(os.path.join(work, "index_bf16"), ignore_errors=True)
+        torch.cuda.empty_cache()
+        b2_err = int8_phase(torch, mt, g, dev)
+        b2 = train_phase(torch, mt, g, dev, work)
+        b2["max_abs_err"] = max(b2["max_abs_err"], b2_err)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     log(f"smoke took {time.perf_counter() - t_start:.0f} s")
     log(smi)
-    log(json.dumps({"kernels": [b1, b3]}))
+    log(json.dumps({"kernels": [b1, b3, b2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,6 +12,11 @@ structure as it is — ``{"embed", "final_norm", "lm_head", "layers": [...]}``
 and ``{"layers": [{name: {"A", "B"}}]}`` — with torch leaves, so conversion
 maps leaves and keeps the key names and (in, out) layouts.
 
+Whole trees. ``params_to_numpy`` / ``params_from_numpy`` carry the training
+tree — ``retriever``, ``post_retriever`` (all its towers, or the query tower
+alone under ``decouple_encoder``), ``generator`` and ``lora`` — under the same
+top-level keys, as a checkpoint pickle holds it.
+
 Demo artifacts. ``load_demo_artifacts`` reads the committed hard-copy
 encoder and generator pickles (numpy fp16 leaves + a SimpleTokenizer vocab),
 the counterpart of ``scripts/pretrain_hard_encoder.py:37-53`` and
@@ -105,6 +110,48 @@ def lora_params_from_numpy(tree: dict, device="cpu") -> dict:
     return _map_tree(tree, lambda v: _tensor(v).to(device))
 
 
+def retriever_from_numpy(tree: dict, cfg, device="cpu"):
+    """A JAX retriever pytree -> a ``DualEncoderRetriever`` on ``device``
+    holding exactly the towers the tree has (a decoupled posterior has its
+    query tower only)."""
+    from .models.bert import BertEncoder
+    from .models.retriever import DualEncoderRetriever
+
+    module = DualEncoderRetriever(
+        cfg, towers={name: BertEncoder(cfg.bert, device=device)
+                     for name in tree})
+    module.load_state_dict(retriever_params_from_numpy(tree))
+    return module
+
+
+RETRIEVERS = ("retriever", "post_retriever")
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The port's params dict -> the JAX package's param pytree of f32 numpy
+    arrays, key for key."""
+    return {key: (retriever_params_to_numpy(sub) if key in RETRIEVERS
+                  else lm_params_to_numpy(sub))
+            for key, sub in params.items()}
+
+
+def params_from_numpy(tree: dict, retriever_cfg, device="cpu") -> dict:
+    """The JAX package's param pytree -> the port's params dict on
+    ``device``: retrievers as modules of ``retriever_cfg``'s geometry, the
+    generator and LoRA as tensor dicts."""
+    out = {}
+    for key, sub in tree.items():
+        if key in RETRIEVERS:
+            out[key] = retriever_from_numpy(sub, retriever_cfg, device)
+        elif key == "lora":
+            out[key] = lora_params_from_numpy(sub, device)
+        elif key == "generator":
+            out[key] = lm_params_from_numpy(sub, device)
+        else:
+            raise ValueError(f"unexpected param tree key {key!r}")
+    return out
+
+
 def load_demo_artifacts(encoder_path: str, generator_path: str,
                         device="cpu"):
     """The committed hard-copy demo pickles -> (retriever, generator config,
@@ -121,9 +168,7 @@ def load_demo_artifacts(encoder_path: str, generator_path: str,
         enc = pickle.load(f)
     with open(generator_path, "rb") as f:
         gen = pickle.load(f)
-    # the port's encoder is inference-only: no remat or dropout fields
-    bert = BertConfig(**{k: v for k, v in enc["bert"].items()
-                         if k not in ("remat", "dropout")})
+    bert = BertConfig(**enc["bert"])
     retriever = DualEncoderRetriever(RetrieverConfig(bert=bert, tied=True),
                                      device=device)
     retriever.load_state_dict(retriever_params_from_numpy(enc["params"]))

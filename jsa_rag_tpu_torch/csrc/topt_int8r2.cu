@@ -1,19 +1,26 @@
-// Two-plane int8 coarse scan with per-tile top-T emit, for Hopper (sm_90a).
+// int8 coarse scans with per-tile top-T emit, for Hopper (sm_90a): one
+// kernel template over the number of query planes P.
 //
-// Replaces jsa_rag_tpu/ops/mips_pallas2.py::_topt_int8r2_kernel_t (:724-747)
-// together with its epilogue _emit_topt (:32-49): the scan behind the int8r
-// flat index's default "rows" refine (mips_topk_pallas2_int8_t, :794-945).
+// P = 2 (kernel B1) replaces jsa_rag_tpu/ops/mips_pallas2.py::
+// _topt_int8r2_kernel_t (:724-747): the scan behind the int8r flat index's
+// default "rows" refine. P = 1 (kernel B2) replaces _topt_int8_kernel_t
+// (:769-786): the single-plane scan behind int8 storage, the int8r "rows1"
+// and "cols" refines and the hybrid index's coarse pass. Both end in the
+// epilogue _emit_topt (:32-49) and run behind mips_topk_pallas2_int8_t
+// (:794-945).
 //
 // What it computes, for every query row q and every tile of TILE_N index rows:
 //   acc_p[q, n] = sum_k qv_p[q, k] * emb[n, k]             (int8 x int8 -> int32)
-//   s[q, n]     = (f32(acc_1) * qs1[q] + f32(acc_2) * qs2[q]) * es[n]
+//   P = 2: s[q, n] = (f32(acc_1) * qs1[q] + f32(acc_2) * qs2[q]) * es[n]
+//   P = 1: s[q, n] = (f32(acc_1) * qs1[q]) * es[n]
 //   s[q, n]     = NEG_INF for n >= n_valid (runtime valid count)
 // then T extract-max passes per (q, tile): the tile's top-T as (score, global
 // id), ties to the lower column like jnp.argmax, id -1 once the tile has no
 // scorable column left. Output layout (n_tiles, b, T), as in the JAX package.
 // The f32 combination is written with __fmul_rn/__fadd_rn so no FMA
 // contraction changes the rounding: the scores equal the plain PyTorch
-// version's (ops/mips_topt.py::scan_topt_int8r2_plain) bit for bit.
+// versions' (ops/mips_topt.py::scan_topt_int8r2_plain, scan_topt_int8_plain)
+// bit for bit.
 //
 // Layout. The index plane is row-major (N, d), not the JAX package's (d, N):
 // the TPU wanted the contraction dim leading for its MXU, while mma.sync's
@@ -22,8 +29,9 @@
 //
 // Bound (H100 SXM, 3.35 TB/s, 1,979 TOPS int8 dense) at the main path's
 // flagship shape N = 1.3M, d = 1024: plane 1 is read once, 1.33 GB ->
-// 0.40 ms; the two int8 products are 4*B*N*d ops -> 1.38 ms at B = 512. So
-// the scan is bound by operations above B ~ 150 and by bytes below it.
+// 0.40 ms; the P int8 products are 2*P*B*N*d ops -> 1.38 ms (P = 2) or
+// 0.69 ms (P = 1) at B = 512. So the scan is bound by operations above
+// B ~ 150 (P = 2) or ~ 300 (P = 1) and by bytes below it.
 //
 // Design, simple and right first:
 // - blocks run independently over (query tile of 32 rows, index tile of
@@ -32,15 +40,15 @@
 //   part of the block index, so the blocks that read one index tile run
 //   together and share it through L2 — device memory sees the plane about
 //   once;
-// - the two query planes are stacked as the 64 rows of the A operand, so one
-//   B fragment of the index feeds both products (one read, two dots, like the
+// - the P query planes are stacked as the 32*P rows of the A operand, so one
+//   B fragment of the index feeds every product (one read, P dots, like the
 //   TPU kernel);
 // - d streams through shared memory in 128-byte chunks, double-buffered with
 //   cp.async (zero-filled past d and past the last row); rows are padded to
 //   144 bytes so the 32-bit fragment loads are free of bank conflicts;
 // - 8 warps (2 along queries x 4 along columns) run
-//   mma.sync.m16n8k32.s8.s8.s32; each thread holds both planes' sums for the
-//   same (query, column) cells and combines them in registers;
+//   mma.sync.m16n8k32.s8.s8.s32; each thread holds every plane's sums for
+//   the same (query, column) cells and combines them in registers;
 // - scores go to shared memory (reusing the stage buffers), then one warp per
 //   query row keeps TILE_N/32 scores per lane in registers and runs the T
 //   passes with a shuffle argmax (topt_emit.cuh, shared with topt_dense.cu).
@@ -58,14 +66,14 @@ using topt::cp_async_commit;
 using topt::cp_async_wait_1;
 using topt::NEG_INF;
 
-constexpr int TQ = 32;        // queries per block (two planes -> 64 A rows)
+constexpr int TQ = 32;        // queries per block (P planes -> 32*P A rows)
 constexpr int KC = 128;       // bytes of d per pipeline stage
 constexpr int ROW = KC + 16;  // padded shared-memory row stride in bytes
 constexpr int THREADS = 256;  // 8 warps: 2 along queries x 4 along columns
 
-template <int TILE_N>
+template <int TILE_N, int P>
 struct Smem {
-  static constexpr int A_BYTES = 2 * TQ * ROW;
+  static constexpr int A_BYTES = P * TQ * ROW;
   static constexpr int E_BYTES = TILE_N * ROW;
   static constexpr int STAGE = A_BYTES + E_BYTES;
   static constexpr int SROW = TILE_N + 8;  // score row stride in floats
@@ -82,9 +90,9 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int TILE_N>
+template <int TILE_N, int P>
 __global__ void __launch_bounds__(THREADS, 2)
-topt_int8r2_kernel(const int8_t* __restrict__ qv1,
+topt_int8_kernel(const int8_t* __restrict__ qv1,
                    const float* __restrict__ qs1,
                    const int8_t* __restrict__ qv2,
                    const float* __restrict__ qs2,
@@ -92,7 +100,8 @@ topt_int8r2_kernel(const int8_t* __restrict__ qv1,
                    const float* __restrict__ es, int b, int d, int n_rows,
                    int n_valid, int t_per_tile, int q_tiles,
                    float* __restrict__ out_s, int* __restrict__ out_i) {
-  using S = Smem<TILE_N>;
+  static_assert(P == 1 || P == 2, "one or two query planes");
+  using S = Smem<TILE_N, P>;
   constexpr int WN = TILE_N / 4;  // columns per warp
   constexpr int NT8 = WN / 8;     // n8 mma tiles per warp
   constexpr int SEGS = KC / 16;   // 16-byte segments per staged row
@@ -107,9 +116,9 @@ topt_int8r2_kernel(const int8_t* __restrict__ qv1,
   const int wn = warp >> 1;  // which quarter of the columns
   const int gid = lane >> 2, tig = lane & 3;
 
-  int acc[2][NT8][4];
+  int acc[P][NT8][4];
 #pragma unroll
-  for (int p = 0; p < 2; ++p)
+  for (int p = 0; p < P; ++p)
 #pragma unroll
     for (int j = 0; j < NT8; ++j)
 #pragma unroll
@@ -119,7 +128,7 @@ topt_int8r2_kernel(const int8_t* __restrict__ qv1,
     unsigned char* a_s = smem + stage * S::STAGE;
     unsigned char* e_s = a_s + S::A_BYTES;
     const int k0 = chunk * KC;
-    for (int i = tid; i < 2 * TQ * SEGS; i += THREADS) {
+    for (int i = tid; i < P * TQ * SEGS; i += THREADS) {
       const int r = i / SEGS, seg = i % SEGS;
       const int q = q0 + (r % TQ), k = k0 + seg * 16;
       const int8_t* base = r < TQ ? qv1 : qv2;
@@ -148,9 +157,9 @@ topt_int8r2_kernel(const int8_t* __restrict__ qv1,
     const unsigned char* e_s = a_s + S::A_BYTES;
 #pragma unroll
     for (int kk = 0; kk < KC; kk += 32) {
-      unsigned a[2][4];
+      unsigned a[P][4];
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
+      for (int p = 0; p < P; ++p) {
         const unsigned char* ar =
             a_s + (p * TQ + wm * 16 + gid) * ROW + kk + tig * 4;
         a[p][0] = *reinterpret_cast<const unsigned*>(ar);
@@ -164,8 +173,8 @@ topt_int8r2_kernel(const int8_t* __restrict__ qv1,
             e_s + (wn * WN + j * 8 + gid) * ROW + kk + tig * 4;
         const unsigned b0 = *reinterpret_cast<const unsigned*>(br);
         const unsigned b1 = *reinterpret_cast<const unsigned*>(br + 16);
-        mma_s8(acc[0][j], a[0], b0, b1);
-        mma_s8(acc[1][j], a[1], b0, b1);
+#pragma unroll
+        for (int p = 0; p < P; ++p) mma_s8(acc[p][j], a[p], b0, b1);
       }
     }
     __syncthreads();  // the next iteration's load overwrites this stage
@@ -180,7 +189,7 @@ topt_int8r2_kernel(const int8_t* __restrict__ qv1,
     const int ql = wm * 16 + gid + 8 * h;
     const int q = q0 + ql;
     const float s1 = q < b ? qs1[q] : 0.f;
-    const float s2 = q < b ? qs2[q] : 0.f;
+    const float s2 = (P == 2 && q < b) ? qs2[q] : 0.f;
 #pragma unroll
     for (int j = 0; j < NT8; ++j) {
 #pragma unroll
@@ -189,10 +198,11 @@ topt_int8r2_kernel(const int8_t* __restrict__ qv1,
         const int col = n0 + cl;
         float s = NEG_INF;
         if (col < n_valid) {
-          s = __fmul_rn(
-              __fadd_rn(__fmul_rn(__int2float_rn(acc[0][j][2 * h + e]), s1),
-                        __fmul_rn(__int2float_rn(acc[1][j][2 * h + e]), s2)),
-              es[col]);
+          float a1 = __fmul_rn(__int2float_rn(acc[0][j][2 * h + e]), s1);
+          if constexpr (P == 2)
+            a1 = __fadd_rn(
+                a1, __fmul_rn(__int2float_rn(acc[P - 1][j][2 * h + e]), s2));
+          s = __fmul_rn(a1, es[col]);
         }
         sc[ql * S::SROW + cl] = s;
       }
@@ -205,15 +215,16 @@ topt_int8r2_kernel(const int8_t* __restrict__ qv1,
                                         t_per_tile, out_s, out_i);
 }
 
-template <int TILE_N>
+template <int TILE_N, int P>
 int launch(const int8_t* qv1, const float* qs1, const int8_t* qv2,
            const float* qs2, const int8_t* emb, const float* es, int b, int d,
            int n_rows, int n_valid, int t_per_tile, float* out_s, int* out_i,
            cudaStream_t stream) {
-  constexpr int smem = Smem<TILE_N>::TOTAL;
-  // once per process (a thread-safe static): the port drives one card
+  constexpr int smem = Smem<TILE_N, P>::TOTAL;
+  // once per process and instance (a thread-safe static): the port drives
+  // one card
   static const cudaError_t attr = cudaFuncSetAttribute(
-      topt_int8r2_kernel<TILE_N>,
+      topt_int8_kernel<TILE_N, P>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int q_tiles = (b + TQ - 1) / TQ;
@@ -221,7 +232,7 @@ int launch(const int8_t* qv1, const float* qs1, const int8_t* qv2,
       static_cast<long long>(q_tiles) * ((n_rows + TILE_N - 1) / TILE_N);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks));
-  topt_int8r2_kernel<TILE_N><<<grid, THREADS, smem, stream>>>(
+  topt_int8_kernel<TILE_N, P><<<grid, THREADS, smem, stream>>>(
       qv1, qs1, qv2, qs2, emb, es, b, d, n_rows, n_valid, t_per_tile, q_tiles,
       out_s, out_i);
   return static_cast<int>(cudaGetLastError());
@@ -250,10 +261,33 @@ extern "C" int topt_int8r2_launch(const void* qv1, const void* qs1,
   auto* oi = static_cast<int*>(out_i);
   auto st = static_cast<cudaStream_t>(stream);
   if (tile_n == 256)
-    return launch<256>(a1, s1, a2, s2, e, se, b, d, n_rows, n_valid,
-                       t_per_tile, os, oi, st);
+    return launch<256, 2>(a1, s1, a2, s2, e, se, b, d, n_rows, n_valid,
+                          t_per_tile, os, oi, st);
   if (tile_n == 128)
-    return launch<128>(a1, s1, a2, s2, e, se, b, d, n_rows, n_valid,
-                       t_per_tile, os, oi, st);
+    return launch<128, 2>(a1, s1, a2, s2, e, se, b, d, n_rows, n_valid,
+                          t_per_tile, os, oi, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Plain C entry for ctypes, single-plane query (kernel B2). Shapes: qv (b, d)
+// int8; qs (b,) f32; the rest as in topt_int8r2_launch.
+extern "C" int topt_int8_launch(const void* qv, const void* qs,
+                                const void* emb, const void* es, int b, int d,
+                                int n_rows, int n_valid, int tile_n,
+                                int t_per_tile, void* out_s, void* out_i,
+                                void* stream) {
+  const auto* a1 = static_cast<const int8_t*>(qv);
+  const auto* s1 = static_cast<const float*>(qs);
+  const auto* e = static_cast<const int8_t*>(emb);
+  const auto* se = static_cast<const float*>(es);
+  auto* os = static_cast<float*>(out_s);
+  auto* oi = static_cast<int*>(out_i);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (tile_n == 256)
+    return launch<256, 1>(a1, s1, nullptr, nullptr, e, se, b, d, n_rows,
+                          n_valid, t_per_tile, os, oi, st);
+  if (tile_n == 128)
+    return launch<128, 1>(a1, s1, nullptr, nullptr, e, se, b, d, n_rows,
+                          n_valid, t_per_tile, os, oi, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,16 +3,18 @@
 
 Builds the retriever and the generator from the geometry presets with a
 seeded ``torch.Generator`` on ``--device`` (random init; the JAX package's
-threefry and torch's Philox give different numbers from one seed), adds the
-LoRA overlay, and restores a checkpoint the JAX trainer wrote. The params
-dict is ``{"retriever": DualEncoderRetriever, "generator": {...}, "lora":
-{...}}``: the towers are an ``nn.Module`` holding their weights, the
-generator and its adapter are dicts under the JAX key names.
+threefry and torch's Philox give different numbers from one seed), the
+posterior retriever of the vrag/jsa modes, the LoRA overlay, and restores a
+checkpoint either package's trainer wrote. The params dict is
+``{"retriever": DualEncoderRetriever, "post_retriever": ..., "generator":
+{...}, "lora": {...}}``: the towers are ``nn.Module``s holding their
+weights, the generator and its adapter dicts under the JAX key names.
+``--dropout`` and the remat flags (``--use_gradient_checkpoint_*``) go into
+the configs.
 
 Not here yet: the HF import of ``--retriever_model_path`` /
-``--generator_model_path`` directories (ROADMAP queue A item 9), the
-posterior tower of the vrag/jsa training modes (items 7-8; evaluation never
-reads it), the gpt2 generator (item 12) and ``--param_dtype bfloat16``.
+``--generator_model_path`` directories (ROADMAP queue A item 9), the gpt2
+generator (item 12) and ``--param_dtype bfloat16``.
 """
 
 from __future__ import annotations
@@ -24,14 +26,15 @@ import torch
 
 from .config import Options
 from .convert import (lm_params_from_numpy, lora_params_from_numpy,
-                      retriever_params_from_numpy)
+                      retriever_from_numpy)
 from .data.passages import PassageStore
 from .data.tokenizer import load_tokenizer
 from .device import resolve_device
 from .models.bert import BERT_PRESETS, BertConfig
 from .models.lm import LMConfig, lm_init
 from .models.lora import LoRAConfig, lora_init
-from .models.retriever import DualEncoderRetriever, RetrieverConfig
+from .models.retriever import (DualEncoderRetriever, RetrieverConfig,
+                               make_posterior)
 from .train.checkpoint import load_checkpoint, load_tokenizers_from_checkpoint
 from .train.rag_model import RAGModel
 
@@ -98,34 +101,50 @@ def load_or_initialize_model(opt: Options, store: PassageStore):
         opt.retriever_model_path)
     g = torch.Generator(device=device).manual_seed(opt.seed)
     bert_cfg = BertConfig(vocab_size=retriever_tok.vocab_size,
-                          pooling=pooling, **BERT_PRESETS[opt.model_size])
-    retriever = DualEncoderRetriever(
-        RetrieverConfig(bert=bert_cfg, tied=False,
-                        query_side_only=opt.query_side_retriever_training),
-        device=device, generator=None if restore else g).eval()
+                          pooling=pooling,
+                          remat=opt.use_gradient_checkpoint_retriever,
+                          dropout=opt.dropout, **BERT_PRESETS[opt.model_size])
+    ret_cfg = RetrieverConfig(
+        bert=bert_cfg, tied=False,
+        query_side_only=opt.query_side_retriever_training)
     gen_cfg = LMConfig(vocab_size=generator_tok.vocab_size,
                        dtype=PRECISIONS[opt.precision],
-                       **LM_PRESETS[opt.model_size])
+                       remat=opt.use_gradient_checkpoint_generator,
+                       dropout=opt.dropout, **LM_PRESETS[opt.model_size])
     lora_cfg = (LoRAConfig(rank=opt.lora_rank, alpha=opt.lora_alpha)
                 if opt.use_lora else None)
+    needs_posterior = (opt.gold_score_mode in ("vrag", "jsa")
+                       and not opt.simplify_JSA)
 
     step = 0
     if restore:
         state = load_checkpoint(opt.model_path)
         restored = state["params"]
-        retriever.load_state_dict(
-            retriever_params_from_numpy(restored["retriever"]))
+        retriever = retriever_from_numpy(restored["retriever"], ret_cfg,
+                                         device)
         params = {"retriever": retriever,
                   "generator": lm_params_from_numpy(restored["generator"],
                                                     device)}
+        if "post_retriever" in restored:
+            params["post_retriever"] = retriever_from_numpy(
+                restored["post_retriever"], ret_cfg, device)
+        elif needs_posterior:
+            # backfill from the RESTORED prior (model_io.py:195-201): the
+            # pre-restore init would hand the chain an untrained proposal
+            params["post_retriever"] = make_posterior(
+                retriever, decouple=opt.decouple_encoder)
         if "lora" in restored:
             params["lora"] = lora_params_from_numpy(restored["lora"], device)
         step = int(state["step"])
         logger.info("Restored checkpoint at step %d from %s", step,
                     opt.model_path)
     else:
+        retriever = DualEncoderRetriever(ret_cfg, device=device, generator=g)
         gen_params = lm_init(gen_cfg, device=device, generator=g)
         params = {"retriever": retriever, "generator": gen_params}
+        if needs_posterior:
+            params["post_retriever"] = make_posterior(
+                retriever, decouple=opt.decouple_encoder)
         if lora_cfg is not None:
             params["lora"] = lora_init(gen_params, lora_cfg, generator=g,
                                        device=device)

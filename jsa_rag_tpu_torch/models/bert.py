@@ -10,8 +10,16 @@ Parameters keep the JAX package's key names and its (in, out) weight layout
 (``x @ w``), so ``convert.py`` moves a numpy pytree into either package:
 ``embed.{word,position,type,ln_scale,ln_bias}`` and
 ``layers.<i>.{q,k,v,o}_{w,b}``, ``attn_ln_{scale,bias}``,
-``ffn_{in,out}_{w,b}``, ``ffn_ln_{scale,bias}``. No dropout: this slice
-serves, it does not train.
+``ffn_{in,out}_{w,b}``, ``ffn_ln_{scale,bias}``.
+
+Training (``bert.py:96-196``): with ``cfg.dropout > 0`` and an ``rng`` (a
+CPU ``torch.Generator``), dropout runs at HF BERT's places — the embeddings,
+the attention probabilities, the attention output and the FFN output — each
+layer's masks drawn from seeds taken from ``rng`` up front, as the JAX
+package splits its key; a forward without ``rng`` is deterministic.
+``cfg.remat`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``); the seeds
+travel into the checkpointed call, so the recomputation draws the same masks.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import functools
 import math
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 # geometry presets, copied from jsa_rag_tpu/model_io.py:35-43
@@ -47,6 +56,8 @@ class BertConfig:
     ln_eps: float = 1e-12
     pooling: str = "mean"  # cls | cls_norm | mean | mean_norm | sqrt
     dtype: torch.dtype = torch.float32  # activation dtype
+    remat: bool = False  # per-layer activation recomputation
+    dropout: float = 0.0  # train-time rate; active only with an rng
 
     @property
     def head_dim(self) -> int:
@@ -63,6 +74,25 @@ def _param(shape, init: str = "normal", *, device, generator):
     else:
         t = torch.zeros(shape, device=device)
     return nn.Parameter(t)
+
+
+def split_seeds(rng: torch.Generator | None, n: int) -> list:
+    """n dropout seeds drawn from the CPU generator ``rng`` (the JAX
+    package's ``jax.random.split``), or n Nones without one."""
+    if rng is None:
+        return [None] * n
+    return torch.randint(0, 2 ** 62, (n,), generator=rng).tolist()
+
+
+def dropout(x, rate: float, seed: int | None):
+    """Inverted dropout with its mask drawn from a generator seeded by
+    ``seed`` on ``x``'s device; identity when ``seed`` is None or
+    ``rate == 0``."""
+    if seed is None or rate == 0.0:
+        return x
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 def _layer_norm(x, scale, bias, eps):
@@ -108,7 +138,7 @@ class BertLayer(nn.Module):
         self.ffn_ln_bias = p((h,), "zeros")
         self.cfg = cfg
 
-    def _attention(self, x, bias):
+    def _attention(self, x, bias, seed=None):
         cfg = self.cfg
         b, s, h = x.shape
         nh, hd = cfg.heads, cfg.head_dim
@@ -123,6 +153,7 @@ class BertLayer(nn.Module):
         logits = torch.einsum("bqnd,bknd->bnqk", q.to(torch.float32),
                               k.to(torch.float32)) / math.sqrt(hd)
         probs = torch.softmax(logits + bias, dim=-1).to(x.dtype)
+        probs = dropout(probs, cfg.dropout, seed)  # attention-probs dropout
         ctx = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(b, s, h)
         return ctx @ self.o_w.to(x.dtype) + self.o_b.to(x.dtype)
 
@@ -131,12 +162,17 @@ class BertLayer(nn.Module):
         h = torch.nn.functional.gelu(h, approximate="none")
         return h @ self.ffn_out_w.to(x.dtype) + self.ffn_out_b.to(x.dtype)
 
-    def forward(self, x, bias):
-        eps = self.cfg.ln_eps
-        x = _layer_norm(x + self._attention(x, bias), self.attn_ln_scale,
-                        self.attn_ln_bias, eps)
-        return _layer_norm(x + self._ffn(x), self.ffn_ln_scale,
-                           self.ffn_ln_bias, eps)
+    def forward(self, x, bias, seeds=(None, None, None)):
+        """``seeds``: the (attention probs, attention output, FFN output)
+        dropout seeds."""
+        cfg = self.cfg
+        a = dropout(self._attention(x, bias, seeds[0]), cfg.dropout,
+                    seeds[1])
+        x = _layer_norm(x + a, self.attn_ln_scale, self.attn_ln_bias,
+                        cfg.ln_eps)
+        f = dropout(self._ffn(x), cfg.dropout, seeds[2])
+        return _layer_norm(x + f, self.ffn_ln_scale, self.ffn_ln_bias,
+                           cfg.ln_eps)
 
 
 class BertEncoder(nn.Module):
@@ -152,8 +188,9 @@ class BertEncoder(nn.Module):
         self.layers = nn.ModuleList(
             BertLayer(cfg, device, generator) for _ in range(cfg.layers))
 
-    def hidden(self, input_ids, attention_mask) -> torch.Tensor:
-        """Last-layer hidden states, (B, S, H)."""
+    def hidden(self, input_ids, attention_mask, rng=None) -> torch.Tensor:
+        """Last-layer hidden states, (B, S, H); ``rng`` (a CPU generator)
+        turns on train-time dropout."""
         cfg = self.cfg
         emb = self.embed
         s = input_ids.shape[1]
@@ -166,13 +203,21 @@ class BertEncoder(nn.Module):
         x = x.to(cfg.dtype)
         bias = torch.where(attention_mask[:, None, None, :].bool(), 0.0,
                            -1e9).to(torch.float32)
-        for layer in self.layers:
-            x = layer(x, bias)
+        seeds = split_seeds(rng if cfg.dropout > 0.0 else None,
+                            1 + 3 * cfg.layers)
+        x = dropout(x, cfg.dropout, seeds[0])
+        for i, layer in enumerate(self.layers):
+            lseeds = tuple(seeds[1 + 3 * i:4 + 3 * i])
+            if cfg.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(
+                    layer, x, bias, lseeds, use_reentrant=False)
+            else:
+                x = layer(x, bias, lseeds)
         return x
 
-    def forward(self, input_ids, attention_mask) -> torch.Tensor:
-        return pool(self.hidden(input_ids, attention_mask), attention_mask,
-                    self.cfg.pooling)
+    def forward(self, input_ids, attention_mask, rng=None) -> torch.Tensor:
+        return pool(self.hidden(input_ids, attention_mask, rng),
+                    attention_mask, self.cfg.pooling)
 
 
 def pool(hidden: torch.Tensor, attention_mask, pooling: str) -> torch.Tensor:

@@ -16,8 +16,15 @@ products run with TF32 off), a -1e9 additive mask, f32 softmax cast to the
 activation dtype. The matmul weights are cast to ``cfg.dtype`` once per call
 (the JAX package casts inside each matmul, which gives the same numbers).
 
+Training: the loss path is differentiable back to the f32 leaves through
+the casts. With ``cfg.dropout > 0`` and an ``rng`` (a CPU generator),
+attention-probability dropout runs in every layer (HF llama's
+``attention_dropout``, as the JAX package places it), from per-layer seeds
+drawn up front; ``cfg.remat`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``) with the same seeds.
+
 Not ported yet (ROADMAP queue A item 12): the gpt2 architecture and
-``beam_generate``; dropout and remat belong to the training slice.
+``beam_generate``.
 """
 
 from __future__ import annotations
@@ -26,6 +33,9 @@ import dataclasses
 import math
 
 import torch
+import torch.utils.checkpoint
+
+from .bert import dropout, split_seeds
 
 IGNORE_INDEX = -100  # label mask value, same constant as the reference
 A12 = "is not ported yet: ROADMAP queue A item 12"
@@ -45,11 +55,9 @@ class LMConfig:
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
     arch: str = "llama"
-    # carried so the JAX package's config dicts load as they are; the
-    # inference forward has no remat, no dropout and no learned positions
-    remat: bool = False
-    max_positions: int = 1024
-    dropout: float = 0.0
+    remat: bool = False  # per-layer activation recomputation (training)
+    max_positions: int = 1024  # gpt2's position table; unused by llama
+    dropout: float = 0.0  # train-time attention dropout; needs an rng
 
     @property
     def head_dim(self) -> int:
@@ -133,7 +141,7 @@ def positions_from_mask(attention_mask) -> torch.Tensor:
 
 
 def _attention(layer, cfg: LMConfig, x, positions, bias, cache=None,
-               cache_len: int = 0):
+               cache_len: int = 0, seed=None):
     """GQA attention. With ``cache`` = (k, v) of (B, T, kv_heads, hd), this
     call's k/v are written into it in place at ``cache_len`` (JAX returns an
     updated copy; in place saves a cache's worth of memory per step) and the
@@ -158,6 +166,7 @@ def _attention(layer, cfg: LMConfig, x, positions, bias, cache=None,
                           k.to(torch.float32)) / math.sqrt(hd)
     logits = logits + bias[:, None]  # (b, 1, q, k) -> (b, 1, 1, q, k)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    probs = dropout(probs, cfg.dropout, seed)
     ctx = torch.einsum("bgrqk,bkgd->bqgrd", probs, v).reshape(b, s, nh * hd)
     return ctx @ layer["o_w"]
 
@@ -169,10 +178,10 @@ def _mlp(layer, x):
 
 
 def _block(layer, cfg: LMConfig, x, positions, bias, cache=None,
-           cache_len: int = 0):
+           cache_len: int = 0, seed=None):
     x = x + _attention(layer, cfg, _rms_norm(x, layer["attn_norm"],
                                              cfg.rms_eps),
-                       positions, bias, cache, cache_len)
+                       positions, bias, cache, cache_len, seed)
     return x + _mlp(layer, _rms_norm(x, layer["mlp_norm"], cfg.rms_eps))
 
 
@@ -185,8 +194,9 @@ def _unembed(p: dict, cfg: LMConfig, x):
 
 
 def lm_logits(params: dict, cfg: LMConfig, input_ids, attention_mask,
-              positions=None) -> torch.Tensor:
-    """(B, S) -> (B, S, V) f32 logits. Causal + padding mask."""
+              positions=None, rng=None) -> torch.Tensor:
+    """(B, S) -> (B, S, V) f32 logits. Causal + padding mask; ``rng`` (a
+    CPU generator) turns on train-time dropout."""
     _check_arch(cfg)
     p = _cast_params(params, cfg)
     s = input_ids.shape[1]
@@ -197,18 +207,25 @@ def lm_logits(params: dict, cfg: LMConfig, input_ids, attention_mask,
                                    device=x.device))[None, None]
     keymask = attention_mask[:, None, None, :].bool()
     bias = torch.where(causal & keymask, 0.0, -1e9).to(torch.float32)
-    for layer in p["layers"]:
-        x = _block(layer, cfg, x, positions, bias)
+    seeds = split_seeds(rng if cfg.dropout > 0.0 else None, cfg.layers)
+    for layer, seed in zip(p["layers"], seeds):
+        if cfg.remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(
+                _block, layer, cfg, x, positions, bias, None, 0, seed,
+                use_reentrant=False)
+        else:
+            x = _block(layer, cfg, x, positions, bias, seed=seed)
     return _unembed(p, cfg, x)
 
 
 def lm_loss(params: dict, cfg: LMConfig, input_ids, attention_mask, labels,
-            *, length_normalized: bool = True, logit_temp: float = 1.0):
+            *, length_normalized: bool = True, logit_temp: float = 1.0,
+            rng=None):
     """Causal-LM cross entropy with IGNORE_INDEX masking -> (per-sequence
     loss (B,), summed NLL (B,)); length-normalised like the reference's
     per-sequence CE (src/rag.py:1338-1366). ``logit_temp`` divides the
     logits before CE (``temperature_gold``, src/rag.py:1349)."""
-    logits = lm_logits(params, cfg, input_ids, attention_mask)
+    logits = lm_logits(params, cfg, input_ids, attention_mask, rng=rng)
     if logit_temp != 1.0:
         logits = logits / logit_temp
     # next-token prediction: logits[t] predicts token t+1

@@ -1,10 +1,10 @@
 """LoRA: low-rank adapter overlay on the generator's parameter dict.
 
-Counterpart of ``jsa_rag_tpu/models/lora.py`` (:20-82) for inference: the
-adapter tree mirrors the base tree at the targeted weight leaves,
+Counterpart of ``jsa_rag_tpu/models/lora.py`` (:20-82): the adapter tree
+mirrors the base tree at the targeted weight leaves,
 ``{"layers": [{name: {"A": (in, r), "B": (r, out)}}]}``, and ``lora_apply``
-materialises ``W + (alpha/rank) * A @ B``. Gradients, and the
-stop-gradient of the base, belong to the training slice.
+materialises ``W + (alpha/rank) * A @ B`` with every base leaf detached (the
+JAX package's stop_gradient), so a backward pass reaches A and B only.
 """
 
 from __future__ import annotations
@@ -48,14 +48,14 @@ def lora_init(params: dict, cfg: LoRAConfig, *, generator: torch.Generator,
 
 def lora_apply(params: dict, lora: dict, cfg: LoRAConfig) -> dict:
     """Effective params: W + (alpha/rank) (A @ B) at the targeted leaves,
-    the delta cast to W's dtype; every other leaf is shared, not copied."""
+    the delta cast to W's dtype; every base leaf detached, not copied."""
     scale = cfg.alpha / cfg.rank
-    merged = {k: v for k, v in params.items() if k != "layers"}
+    merged = {k: v.detach() for k, v in params.items() if k != "layers"}
     merged["layers"] = []
     for layer, entry in zip(params["layers"], lora["layers"]):
-        out = dict(layer)
+        out = {k: v.detach() for k, v in layer.items()}
         for name, ab in entry.items():
-            w = layer[name]
+            w = out[name]
             out[name] = w + ((ab["A"] @ ab["B"]) * scale).to(w.dtype)
         merged["layers"].append(out)
     return merged

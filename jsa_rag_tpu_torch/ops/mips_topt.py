@@ -1,13 +1,19 @@
-"""Scan-and-select MIPS: the int8r and dense (bf16/f32) scans, the exact
-candidate merge and the int8r rows refine.
+"""Scan-and-select MIPS: the int8 (one- and two-plane query) and dense
+(bf16/f32) scans, the exact candidate merge and the refines.
 
-Counterpart of ``jsa_rag_tpu/ops/mips_pallas2.py``, two subsets:
+Counterpart of ``jsa_rag_tpu/ops/mips_pallas2.py``, three subsets:
 
 - int8r: the ``refine > 0``, ``res_rows``, ``int8r_refine="rows"`` branch of
   ``mips_topk_pallas2_int8_t`` (:794-945) — the default search of the int8r
   flat index. The Pallas kernel ``_topt_int8r2_kernel_t`` (:724-747) becomes
   the hand-written CUDA kernel ``csrc/topt_int8r2.cu`` (kernel B1); its plain
   PyTorch version is ``scan_topt_int8r2_plain``;
+- int8: every other branch of that wrapper, as ``mips_topk_int8_t`` — int8
+  storage (refine 0), the hybrid index (int8 coarse scan, then
+  ``_f16_refine`` over its fp16 rows) and the int8r ``rows1``/``cols``
+  refines. The Pallas kernel ``_topt_int8_kernel_t`` (:769-786) becomes the
+  single-plane instance of the same CUDA template (kernel B2,
+  ``scan_topt_int8``); its plain version is ``scan_topt_int8_plain``;
 - dense: ``mips_topk_pallas2_t`` (:203-292), the search of every bf16/f32
   flat index, as ``mips_topk_dense_t``. The Pallas kernel ``_topt_kernel_t``
   (:176-200) becomes ``csrc/topt_dense.cu`` (kernel B3); its plain version
@@ -177,6 +183,50 @@ def scan_topt_int8r2_plain(qv1, qs1, qv2, qs2, emb, es, valid_n: int,
                             t_per_tile, emb.device)
 
 
+def _check_int8_args(qv, qs, emb, es, valid_n, tile_n, t_per_tile):
+    b, d = qv.shape
+    n_rows = emb.shape[0]
+    for name, t, dtype, numel in (
+            ("qv", qv, torch.int8, b * d), ("qs", qs, torch.float32, b),
+            ("emb", emb, torch.int8, n_rows * d),
+            ("es", es, torch.float32, n_rows)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != emb.device:
+            raise ValueError(f"{name} is on {t.device}, emb on {emb.device}")
+        if t.numel() != numel:
+            raise ValueError(f"{name} has {t.numel()} elements, want {numel}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if emb.dim() != 2 or emb.shape[1] != d:
+        raise ValueError(f"shape mismatch: qv {tuple(qv.shape)}, "
+                         f"emb {tuple(emb.shape)}")
+    if not 0 <= valid_n <= n_rows:
+        raise ValueError(f"valid_n {valid_n} outside [0, {n_rows}]")
+    if not 1 <= t_per_tile <= tile_n:
+        raise ValueError(f"t_per_tile {t_per_tile} outside [1, {tile_n}]")
+
+
+def scan_topt_int8_plain(qv, qs, emb, es, valid_n: int, tile_n: int,
+                         t_per_tile: int):
+    """Plain PyTorch version of kernel B2: scores ``(acc * qs) * es`` in
+    that order (the JAX kernel's and the CUDA kernel's), the valid-count
+    mask and the per-tile top-T of ``_tile_topt_plain``. The int8 products
+    are exact as in ``scan_topt_int8r2_plain``."""
+    _check_int8_args(qv, qs, emb, es, valid_n, tile_n, t_per_tile)
+    b, d = qv.shape
+    exact = torch.float32 if d * 127 * 127 < 2 ** 24 else torch.float64
+    qs, es = qs.reshape(b, 1), es.reshape(-1)
+    q = qv.to(exact)
+
+    def score_rows(lo, hi):
+        acc = (q @ emb[lo:hi].to(exact).T).to(torch.float32)
+        return acc * qs * es[lo:hi]
+
+    return _tile_topt_plain(score_rows, b, emb.shape[0], valid_n, tile_n,
+                            t_per_tile, emb.device)
+
+
 KERNELS = ("topt_int8r2", "topt_dense")
 
 
@@ -191,6 +241,8 @@ def _kernel_libs() -> dict:
     for fn, argtypes in (
             (libs["topt_int8r2"].topt_int8r2_launch,
              [ptr] * 6 + [i32] * 6 + [ptr] * 3),
+            (libs["topt_int8r2"].topt_int8_launch,
+             [ptr] * 4 + [i32] * 6 + [ptr] * 3),
             (libs["topt_dense"].topt_dense_bf16_launch,
              [ptr] * 3 + [i32] * 6 + [ptr] * 3),
             (libs["topt_dense"].topt_dense_f32_launch,
@@ -264,6 +316,38 @@ def scan_topt_int8r2(qv1, qs1, qv2, qs2, emb, es, valid_n: int,
 
 
 scan_topt_int8r2.launches = 0
+
+
+def scan_topt_int8(qv, qs, emb, es, valid_n: int, tile_n: int,
+                   t_per_tile: int):
+    """Single-plane int8 scan + per-tile top-T emit -> (scores, ids), each
+    (ceil(N / tile_n), B, T).
+
+    qv (B, d) int8 and qs (B, 1) f32: the quantised query; emb (N, d) int8
+    and es (1, N) f32: the index rows and their scales; rows at or past
+    ``valid_n`` score NEG_INF. CPU tensors take the plain version; CUDA
+    tensors launch the single-plane instance of ``csrc/topt_int8r2.cu``
+    (kernel B2, counted in ``scan_topt_int8.launches``) or raise — there is
+    no fallback."""
+    if emb.device.type == "cpu":
+        return scan_topt_int8_plain(qv, qs, emb, es, valid_n, tile_n,
+                                    t_per_tile)
+    if emb.device.type != "cuda":
+        raise ValueError(f"unsupported device {emb.device}")
+    _check_int8_args(qv, qs, emb, es, valid_n, tile_n, t_per_tile)
+    b, d = qv.shape
+    n_rows = emb.shape[0]
+    n_tiles = _check_launch(b, d, n_rows, tile_n, (qv, emb))
+    out = _launch(
+        "topt_int8", _kernel_libs()["topt_int8r2"].topt_int8_launch,
+        (qv.data_ptr(), qs.data_ptr(), emb.data_ptr(), es.data_ptr(), b, d,
+         n_rows, int(valid_n), tile_n, t_per_tile), b, n_tiles, t_per_tile,
+        emb.device)
+    scan_topt_int8.launches += 1
+    return out
+
+
+scan_topt_int8.launches = 0
 
 
 # ------------------------------------------------------------- dense scan
@@ -402,6 +486,112 @@ def _int8r_rows_refine(q, coarse_vals, res_rows, res_scale, ids, k: int,
     s = torch.where((ids >= 0) & (ids < nv), s, NEG_INF)
     v, a = torch.topk(s, k, dim=1)
     return v, torch.gather(ids, 1, a)
+
+
+def _f16_refine(q, emb_rows, ids, k: int, nv: int):
+    """Rescore coarse candidates at f32 from the fp16 rows
+    (``mips_pallas2.py::_f16_refine``, rows gather): the stored fp16 values
+    converted exactly, an f32 product with TF32 off, ids outside [0, nv) —
+    the -1 sentinel included, whose clipped gather read row 0 — masked to
+    NEG_INF, then the top-k."""
+    if q.device.type == "cuda":
+        exact_f32_matmul()
+    x = emb_rows[ids.long().clamp(0, emb_rows.shape[0] - 1)].to(torch.float32)
+    s = torch.einsum("bd,bkd->bk", q, x)
+    s = torch.where((ids >= 0) & (ids < nv), s, NEG_INF)
+    v, a = torch.topk(s, k, dim=1)
+    return v, torch.gather(ids, 1, a)
+
+
+def _int8r_refine(q, emb_q, scale, res_rows, res_scale, ids, k: int,
+                  nv: int):
+    """The int8r ``cols`` refine (``mips_pallas2.py::_int8r_refine``): both
+    planes of each candidate gathered (plane 1 is row-major here, so the
+    JAX package's column gather is a row gather), x = v1*s1 + v2*s2 in f32,
+    an f32 product, ids outside [0, nv) masked, then the top-k."""
+    if q.device.type == "cuda":
+        exact_f32_matmul()
+    flat = ids.long().clamp(0, emb_q.shape[0] - 1)
+    x = (emb_q[flat].to(torch.float32) * scale.reshape(-1)[flat, None]
+         + res_rows[flat].to(torch.float32)
+         * res_scale.reshape(-1)[flat, None])
+    s = torch.einsum("bd,bkd->bk", q, x)
+    s = torch.where((ids >= 0) & (ids < nv), s, NEG_INF)
+    v, a = torch.topk(s, k, dim=1)
+    return v, torch.gather(ids, 1, a)
+
+
+def hybrid_int8_from_f16(rows: torch.Tensor):
+    """The hybrid index's coarse copy (``mips_pallas2.py::
+    hybrid_int8_from_bits``): the stored fp16 rows converted exactly to f32
+    (subnormals kept), then ``quantize_int8`` per row -> (codes (rows, d)
+    int8, scales (rows,) f32)."""
+    v, s = quantize_int8(rows.to(torch.float32))
+    return v, s[:, 0]
+
+
+def mips_topk_int8_t(
+    queries: torch.Tensor,    # (B, d) f32
+    emb_rows: torch.Tensor,   # (N, d) int8: the coarse rows (plane 1)
+    emb_scale: torch.Tensor,  # (1, N) f32: their row scales
+    k: int,
+    *,
+    valid_n: int | None = None,
+    pool_n: int | None = None,
+    tile_n: int = 256,
+    t_per_tile: int = 4,
+    refine: int = 0,
+    f16_rows: torch.Tensor | None = None,   # (N, d) fp16: hybrid
+    res_rows: torch.Tensor | None = None,   # (N, d) int8: int8r plane 2
+    res_scale: torch.Tensor | None = None,  # (1, N) f32
+    int8r_refine: str = "rows",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused MIPS over an int8 index: counterpart of
+    ``mips_topk_pallas2_int8_t`` -> (scores (B, k) f32, ids (B, k) int32).
+
+    ``refine=0``: the int8 scores, merged (int8 storage). ``refine=r>0``
+    with ``f16_rows``: the hybrid index — the coarse top-(r*k) rescored by
+    ``_f16_refine``. ``refine=r>0`` with ``res_rows``: int8r, by
+    ``int8r_refine``: "rows" is ``mips_topk_int8r_t`` (two-plane query,
+    kernel B1); "rows1" scans with one plane and adds the plane-2 term
+    (``_int8r_rows_refine``); "cols" rebuilds both planes (``_int8r_refine``).
+    Every scan but "rows" is kernel B2. ``valid_n``/``pool_n``/``tile_n``
+    as in ``mips_topk_int8r_t``."""
+    if refine and f16_rows is None and res_rows is None:
+        raise ValueError(
+            "int8 refine needs f16_rows (hybrid) or res_rows (residual)")
+    if res_rows is not None and res_scale is None:
+        raise ValueError("res_rows requires res_scale")
+    if int8r_refine not in ("rows", "rows1", "cols"):
+        raise ValueError(f"int8r_refine must be rows|rows1|cols, got "
+                         f"{int8r_refine!r}")
+    if refine and res_rows is not None and int8r_refine == "rows":
+        return mips_topk_int8r_t(
+            queries, emb_rows, emb_scale, k, res_rows=res_rows,
+            res_scale=res_scale, valid_n=valid_n, pool_n=pool_n,
+            tile_n=tile_n, t_per_tile=t_per_tile, refine=refine)
+    b = queries.shape[0]
+    n = emb_rows.shape[0]
+    k = min(k, n)
+    k_sel = min(refine * k, n) if refine else k
+    valid_n = n if valid_n is None else int(valid_n)
+    tile_n, t = scan_geometry(n, k_sel, pool_n, tile_n, t_per_tile)
+    q = queries.to(torch.float32)
+    qv, qs = quantize_int8(q)
+    cand_s, cand_i = scan_topt_int8(qv, qs, emb_rows, emb_scale, valid_n,
+                                    tile_n, t)
+    cand_s = cand_s.permute(1, 0, 2).reshape(b, -1)
+    cand_i = cand_i.permute(1, 0, 2).reshape(b, -1)
+    if not refine:
+        return _merge_candidates(cand_s, cand_i, k, b)
+    vals, ids = _merge_candidates(cand_s, cand_i, k_sel, b)
+    if res_rows is None:
+        return _f16_refine(q, f16_rows, ids, k, valid_n)
+    if int8r_refine == "rows1":
+        return _int8r_rows_refine(q, vals, res_rows, res_scale, ids, k,
+                                  valid_n)
+    return _int8r_refine(q, emb_rows, emb_scale, res_rows, res_scale, ids, k,
+                         valid_n)
 
 
 def mips_topk_int8r_t(

@@ -1,3 +1,3 @@
-"""Inference half of the JAX package's ``train/``: checkpoint loading and the
-RAG model's retrieval and generation. Training itself is ROADMAP queue A
-items 7-9."""
+"""The JAX package's ``train/``: the jsa training step and loop, the
+optimizer, checkpoints and the RAG model's retrieval and generation; the
+entry point is ``python -m jsa_rag_tpu_torch.train``."""

@@ -1,0 +1,71 @@
+"""Training entry point of the port (counterpart of ``train.py``; same
+flags, plus ``--device``):
+
+    python -m jsa_rag_tpu_torch.train --name run --task qa \\
+        --gold_score_mode jsa --train_data data/train.jsonl \\
+        --passages data/passages.jsonl --index_dtype hybrid \\
+        --total_steps 50 --model_size tiny [--device cuda]
+
+Flow: load or initialise the model (``--model_path`` may be a checkpoint
+either package wrote); load the index from ``--load_index_path`` or make an
+empty one that the loop builds with the live passage tower; build the
+optimizer; run ``train`` (eval on ``--eval_data`` every ``--eval_freq``
+steps); save the index to ``--save_index_path``. ``--device cuda`` (the
+default) raises where there is no CUDA; ``--device cpu`` runs every kernel's
+plain version.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import sys
+
+from ..config import Options
+from ..data.passages import PassageStore
+from ..evaluation import evaluate
+from ..index import build_index_for, load_index
+from ..model_io import load_or_initialize_model
+from .loop import train
+from .optim import set_optim
+
+logger = logging.getLogger("train")
+
+
+def init_logger(opt: Options) -> None:
+    os.makedirs(os.path.join(opt.checkpoint_dir, opt.name), exist_ok=True)
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s | %(name)s | %(message)s",
+        handlers=[logging.StreamHandler(sys.stdout),
+                  logging.FileHandler(os.path.join(
+                      opt.checkpoint_dir, opt.name, "run.log"))])
+
+
+def main(argv=None) -> int:
+    """Run the training; returns the final step."""
+    opt = Options.from_args(argv)
+    init_logger(opt)
+    opt.dump(os.path.join(opt.checkpoint_dir, opt.name, "options.json"))
+    store = PassageStore.from_jsonl(opt.passages) if opt.passages else \
+        PassageStore.synthetic(1024, seed=opt.seed)
+    model, params, step = load_or_initialize_model(opt, store)
+    hidden = model.retriever.cfg.bert.hidden
+    if opt.closed_book or opt.use_file_passages:
+        index = None  # no retrieval at all: never embed the corpus
+    elif opt.load_index_path:
+        index = load_index(opt.load_index_path, device=opt.device,
+                           expected_dim=hidden, refine_r=opt.refine_r,
+                           int8r_refine=opt.int8r_refine)
+    else:
+        index = build_index_for(opt, len(store), hidden, device=opt.device)
+    tx = set_optim(opt, params)
+    step = train(model, index, params, tx, opt, step=step,
+                 evaluate_fn=evaluate)
+    if opt.save_index_path and index is not None:
+        index.save(opt.save_index_path, n_files=opt.save_index_n_shards)
+    logger.info("done at step %d", step)
+    return step
+
+
+if __name__ == "__main__":
+    main()

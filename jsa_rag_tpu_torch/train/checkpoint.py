@@ -1,25 +1,173 @@
-"""Checkpoint loading (counterpart of the load half of
-``jsa_rag_tpu/train/checkpoint.py``, :172-197), so a ``--model_path``
-written by the JAX trainer evaluates in the port.
+"""Checkpoints in the JAX package's layout (counterpart of
+``jsa_rag_tpu/train/checkpoint.py``), so either package resumes or
+evaluates the other's.
 
-A checkpoint is ``<run>/step-N/state.pkl`` (``{"step", "params",
-"opt_state"?}``, numpy leaves) beside ``tokenizer.json`` /
-``retriever_tokenizer.json``, with a ``latest`` symlink in the run dir.
+A checkpoint is ``<run>/step-N/state.pkl`` (``{"step", "params"}``, the
+JAX param pytree with numpy leaves, ``convert.params_to_numpy``) beside
+``options.json``, ``tokenizer.json`` / ``retriever_tokenizer.json``, with a
+``latest`` symlink in the run dir; ``export_retriever`` writes the towers
+alone under ``bge_<tower>_Embedding_Ret/step-N`` with a ``lastest`` (sic)
+symlink (train.py:335-372). Writes can queue on one background thread
+(``block=False``): the host copy happens on the caller's thread, the disk
+IO in submission order; ``wait_for_writes`` joins it and re-raises a failed
+write. Saving the optimizer state (``--save_optimizer``) is ROADMAP queue A
+item 9.
+
 Leaves stored in float32 or float16 load; a tree saved under
 ``--param_dtype bfloat16`` holds ml_dtypes bf16 arrays, which need the
 ml_dtypes package to unpickle and which the port does not carry — loading
-one raises. ``save_checkpoint`` comes with the training slice (ROADMAP
-queue A item 9). Only load checkpoints this project wrote: unpickling runs
-code.
+one raises. Only load checkpoints this project wrote: unpickling runs code.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import pickle
+import threading
+from typing import Any
 
+from ..convert import params_to_numpy, retriever_params_to_numpy
 from ..data.tokenizer import SimpleTokenizer
+
+
+class _AsyncWriter:
+    """FIFO background writer (``checkpoint.py:31-81``): ``submit`` never
+    blocks; jobs run in order on one non-daemon thread that exits when
+    drained; the first failed job's error re-raises on the next ``join``."""
+
+    def __init__(self):
+        self._jobs = collections.deque()
+        self._cv = threading.Condition()
+        self._thread: threading.Thread | None = None
+        self._err: BaseException | None = None
+
+    def submit(self, fn) -> None:
+        with self._cv:
+            self._jobs.append(fn)
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._run, name="ckpt-writer", daemon=False)
+                self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            with self._cv:
+                if not self._jobs:
+                    self._thread = None
+                    self._cv.notify_all()
+                    return
+                fn = self._jobs.popleft()
+            try:
+                fn()
+            except BaseException as e:  # surfaced on the next join
+                with self._cv:
+                    if self._err is None:
+                        self._err = e
+
+    def join(self) -> None:
+        with self._cv:
+            while self._jobs or self._thread is not None:
+                self._cv.wait(timeout=0.1)
+            if self._err is not None:
+                err, self._err = self._err, None
+                raise err
+
+
+_writer = _AsyncWriter()
+
+
+def wait_for_writes() -> None:
+    """Block until queued checkpoint writes finish (re-raising a failure)."""
+    _writer.join()
+
+
+def symlink_force(target: str, link: str) -> None:
+    """Atomic symlink replace: a temp-named link ``os.replace``d over the
+    destination, so the run is never without its ``latest`` link."""
+    tmp = f"{link}.tmp.{os.getpid()}"
+    try:
+        os.symlink(target, tmp)
+        os.replace(tmp, link)
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def _dump_pickle(obj, path: str) -> None:
+    """tmp + rename: a crash cannot leave a truncated pickle behind."""
+    tmp = os.path.join(os.path.dirname(path),
+                       f".{os.path.basename(path)}.tmp.{os.getpid()}")
+    with open(tmp, "wb") as f:
+        pickle.dump(obj, f, protocol=4)
+    os.replace(tmp, path)
+
+
+def save_checkpoint(path: str, name: str, step: int, params: dict,
+                    opt_state: Any = None, options: Any = None,
+                    tokenizer: Any = None, retriever_tokenizer: Any = None,
+                    block: bool = True) -> str:
+    """Write ``<path>/<name>/step-<step>`` and repoint ``latest``; returns
+    the step dir. The host copy of ``params`` is taken here; with
+    ``block=False`` the disk IO queues on the background writer."""
+    if opt_state is not None:
+        raise NotImplementedError(
+            "saving the optimizer state (--save_optimizer) is not ported "
+            "yet: ROADMAP queue A item 9")
+    run_dir = os.path.join(path, name)
+    step_dir = os.path.join(run_dir, f"step-{step}")
+    state = {"step": step, "params": params_to_numpy(params)}
+
+    def write():
+        os.makedirs(step_dir, exist_ok=True)
+        _dump_pickle(state, os.path.join(step_dir, "state.pkl"))
+        if options is not None:
+            options.dump(os.path.join(step_dir, "options.json"))
+        for tok, fname in ((tokenizer, "tokenizer.json"),
+                           (retriever_tokenizer,
+                            "retriever_tokenizer.json")):
+            if tok is not None and hasattr(tok, "to_dict"):
+                with open(os.path.join(step_dir, fname), "w") as f:
+                    json.dump(tok.to_dict(), f)
+        # flip latest only after every artifact of the step is on disk
+        symlink_force(f"step-{step}", os.path.join(run_dir, "latest"))
+
+    if block:
+        _writer.join()  # never reorder behind a queued write
+        write()
+    else:
+        _writer.submit(write)
+    return step_dir
+
+
+def export_retriever(path: str, step: int, retriever, tokenizer: Any = None,
+                     prefix: str = "bge", block: bool = True) -> None:
+    """The retriever's towers alone, one pickle per tower, with a
+    ``lastest`` symlink per tower (``checkpoint.py:219-259``)."""
+    host = retriever_params_to_numpy(retriever)
+
+    def write():
+        for tower in list(host):
+            host_tower = host.pop(tower)  # free as written
+            root = os.path.join(path, f"{prefix}_{tower}_Embedding_Ret")
+            step_dir = os.path.join(root, f"step-{step}")
+            os.makedirs(step_dir, exist_ok=True)
+            _dump_pickle(host_tower, os.path.join(step_dir, "params.pkl"))
+            if tokenizer is not None and hasattr(tokenizer, "to_dict"):
+                with open(os.path.join(step_dir, "tokenizer.json"),
+                          "w") as f:
+                    json.dump(tokenizer.to_dict(), f)
+            symlink_force(f"step-{step}", os.path.join(root, "lastest"))
+
+    if block:
+        _writer.join()
+        write()
+    else:
+        _writer.submit(write)
 
 
 def _resolve(path: str) -> str:

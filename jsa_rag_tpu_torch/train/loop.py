@@ -1,0 +1,241 @@
+"""The training loop (counterpart of ``jsa_rag_tpu/train/loop.py``;
+reference: train.py:113-377): the initial index build, the refresh
+schedule, the optimizer steps, periodic eval/save/retriever export, stats
+and logging, on one device.
+
+As in the JAX package, the step's loss and aux stay on the device and are
+drained to the host every 32 steps, at a log boundary, or when a
+``training_info_step{N}.json`` dump (``--log_detail_num``) needs them, so
+the host builds the next batch while the device runs the step. SIGTERM and
+SIGUSR1 end the run after the current step with a checkpoint.
+
+Not ported yet: ``--incremental_refresh_batches`` (the double-buffered
+refresh) and ``--pipeline_retrieval`` (ROADMAP queue A item 11),
+``--profile_steps`` (item 15), ``--save_optimizer`` (item 9).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import signal
+import time
+
+from ..config import Options
+from ..tasks import get_task
+from ..utils.schedulers import IndexRefreshScheduler
+from ..utils.stats import WeightedAvgStats
+from .checkpoint import export_retriever, save_checkpoint, wait_for_writes
+from .modes import StepRng
+from .optim import AdamW
+from .step import host_batch_rows, make_train_step
+
+logger = logging.getLogger(__name__)
+
+DRAIN_EVERY = 32  # device scalars kept before a forced host sync
+
+
+def train_mode_of(opt: Options) -> str:
+    return "concat" if opt.gen_method == "concat" else opt.gold_score_mode
+
+
+def _check_ported(opt: Options) -> None:
+    for flag, item in (("incremental_refresh_batches", 11),
+                       ("pipeline_retrieval", 11), ("profile_steps", 15),
+                       ("save_optimizer", 9)):
+        if getattr(opt, flag):
+            raise NotImplementedError(
+                f"--{flag} is not ported yet: ROADMAP queue A item {item}")
+
+
+def train(model, index, params: dict, tx: AdamW, opt: Options,
+          step: int = 0, evaluate_fn=None,
+          checkpoint_path: str | None = None):
+    """Run the training loop; returns the final step. ``params`` is updated
+    in place."""
+    _check_ported(opt)
+    run_stats = WeightedAvgStats()
+    checkpoint_path = checkpoint_path or os.path.join(opt.checkpoint_dir,
+                                                      opt.name)
+    os.makedirs(checkpoint_path, exist_ok=True)
+    metrics_log = open(os.path.join(checkpoint_path, "metrics.jsonl"), "a")
+    try:
+        mode = train_mode_of(opt)
+        first_step = step + 1
+        uses_index = not opt.use_file_passages and not opt.closed_book
+        if uses_index and opt.load_index_path is None:
+            t0 = time.time()
+            model.build_index(index, params)
+            logger.info("Initial indexing time: %.3f min",
+                        (time.time() - t0) / 60)
+
+        task = get_task(opt, model.generator_tokenizer)
+        refresh = IndexRefreshScheduler(opt.refresh_index,
+                                        opt.freeze_retriever_steps,
+                                        opt.train_retriever)
+        train_step = make_train_step(model, mode, tx)
+        batch_rows = host_batch_rows(opt)
+
+        stop_requested = {"flag": False}
+
+        def _on_term(signum, frame):
+            stop_requested["flag"] = True
+
+        try:
+            signal.signal(signal.SIGTERM, _on_term)
+            signal.signal(signal.SIGUSR1, _on_term)
+        except ValueError:
+            pass  # not the main thread (e.g. tests)
+
+        rng = StepRng.from_seed(opt.seed, model.device)
+        epoch = 0
+        pending: list = []  # (iter_stats, loss, aux, weight), on the device
+        last_loss = float("nan")
+
+        def drain_pending() -> float:
+            nonlocal last_loss
+            for istats, ldev, adev, w in pending:
+                last_loss = float(ldev)
+                istats["loss/train_loss"] = (last_loss, w)
+                for k, v in adev.items():
+                    if not k.startswith("debug/"):
+                        istats[k] = (float(v), w)
+                run_stats.update(istats)
+            pending.clear()
+            return last_loss
+
+        while step < opt.total_steps:
+            epoch += 1
+            data_iterator = task.data_iterator(
+                opt.train_data, 0, 1, repeat_if_less_than_world_size=True,
+                opt=opt)
+            data_iterator = filter(None, map(task.process, data_iterator))
+            # per-(seed, epoch, rank) shuffle seed (loop.py:155-162)
+            batches = task.batch_iterator(
+                data_iterator, batch_rows, drop_last=True, shuffle=True,
+                shuffle_buffer_size=opt.shuffle_buffer_size,
+                shuffle_seed=opt.seed * 1_000_003 + epoch * 9_973)
+            batches_it = iter(batches)
+            batch = next(batches_it, None)
+            while batch is not None:
+                iter_stats: dict = {}
+                step += 1
+                t_step = time.time()
+                if uses_index and refresh.is_time_to_refresh(step):
+                    # a just-loaded index already holds these weights' rows
+                    if not (step == first_step
+                            and opt.load_index_path is not None):
+                        t0 = time.time()
+                        model.build_index(index, params, iter_stats)
+                        iter_stats["runtime/indexing"] = (time.time() - t0,
+                                                          1)
+                queries, targets = batch["query"], batch["target"]
+                filt = getattr(task, "filter", None)
+                filt = filt if callable(filt) else None
+                t0 = time.time()
+                train_batch = model.build_batch(
+                    mode, index, params, queries, targets, iter_stats,
+                    file_passages=batch.get("passages"),
+                    batch_metadata=batch.get("metadata"),
+                    filtering_fun=filt)
+                iter_stats["runtime/retrieve+tokenize"] = (time.time() - t0,
+                                                           1)
+                next_batch = next(batches_it, None)
+
+                t0 = time.time()
+                loss, aux = train_step(params, train_batch, rng)
+                # host time to enqueue the step; the device finishes later
+                iter_stats["runtime/fwdbwd+update"] = (time.time() - t0, 1)
+                iter_stats["runtime/train_step"] = (time.time() - t_step, 1)
+                pending.append((iter_stats, loss, aux, len(queries)))
+                if len(pending) >= DRAIN_EVERY:
+                    drain_pending()
+
+                if step <= opt.log_detail_num:
+                    # training_info_step{N}.json (reference: train.py:228)
+                    loss_v = drain_pending()
+                    info = dict(getattr(model, "last_info", {}))
+                    info.update({k: v.tolist() for k, v in aux.items()
+                                 if k.startswith("debug/")})
+                    info["loss"] = loss_v
+                    with open(os.path.join(
+                            checkpoint_path,
+                            f"training_info_step{step}.json"), "w") as f:
+                        json.dump(info, f, indent=1)
+
+                if step % opt.log_freq == 0:
+                    loss_v = drain_pending()
+                    avg = run_stats.average_stats
+                    log = f"EPOCH:{epoch} | {step}/{opt.total_steps}"
+                    log += f" | train_loss:{loss_v:.4f}"
+                    if "loss/generator_loss" in avg:
+                        log += f" | gen_loss:{avg['loss/generator_loss']:.4f}"
+                    if "accept_rate" in avg:
+                        log += f" | accept_rate:{avg['accept_rate']:.3f}"
+                    logger.info(log)
+                    _write_metrics(metrics_log, step, avg)
+                    run_stats.reset()
+
+                if evaluate_fn is not None and step % opt.eval_freq == 0:
+                    for data_path in opt.eval_data:
+                        metrics = evaluate_fn(model, index, params, opt,
+                                              data_path, step)
+                        logger.info("Dataset: %s | %s",
+                                    os.path.basename(data_path), " | ".join(
+                                        f"{v:.3f} {k}"
+                                        for k, v in metrics.items()))
+
+                if (opt.save_build_retriever_step
+                        and step % opt.save_build_retriever_step == 0
+                        and step % opt.save_freq != 0):
+                    export_retriever(checkpoint_path, step,
+                                     params["retriever"],
+                                     tokenizer=model.retriever_tokenizer,
+                                     block=False)
+                if step % opt.save_freq == 0:
+                    export_retriever(checkpoint_path, step,
+                                     params["retriever"],
+                                     tokenizer=model.retriever_tokenizer,
+                                     block=False)
+                    save_checkpoint(opt.checkpoint_dir, opt.name, step,
+                                    params, options=opt,
+                                    tokenizer=model.generator_tokenizer,
+                                    retriever_tokenizer=model
+                                    .retriever_tokenizer, block=False)
+
+                if stop_requested["flag"]:
+                    drain_pending()
+                    _flush_metrics(metrics_log, step, run_stats)
+                    if step % opt.save_freq != 0:
+                        save_checkpoint(
+                            opt.checkpoint_dir, opt.name, step, params,
+                            options=opt, tokenizer=model.generator_tokenizer,
+                            retriever_tokenizer=model.retriever_tokenizer)
+                    logger.info("preemption checkpoint saved at step %d",
+                                step)
+                    return step
+
+                if step >= opt.total_steps:
+                    break
+                batch = next_batch
+        drain_pending()
+        _flush_metrics(metrics_log, step, run_stats)
+        return step
+    finally:
+        metrics_log.close()
+        wait_for_writes()
+
+
+def _write_metrics(metrics_log, step: int, avg: dict) -> None:
+    if avg:
+        metrics_log.write(json.dumps(
+            {"step": step, **{k: float(v) for k, v in avg.items()}}) + "\n")
+        metrics_log.flush()
+
+
+def _flush_metrics(metrics_log, step: int, run_stats) -> None:
+    """Write a partial stats window before returning."""
+    _write_metrics(metrics_log, step, run_stats.average_stats)
+    run_stats.reset()
+

@@ -1,18 +1,18 @@
-"""RAG orchestration, the inference half: retrieval, live rescoring, index
-build and generation.
+"""RAG orchestration: retrieval, live rescoring, index build, the jsa
+training batch and loss, and generation.
 
-Counterpart of ``jsa_rag_tpu/train/rag_model.py`` (:45-325 and :603-735).
-Host side as in the JAX package: tokenisation, id -> passage resolution and
-the fast_deocde1/2 selection run on numpy; the towers, the index search and
-the decode run on the model's device. ``params`` is the dict of
-``model_io.load_or_initialize_model``: ``params["retriever"]`` is the
-``DualEncoderRetriever`` module whose weights a call uses,
-``params["generator"]``/``params["lora"]`` the generator's tensors.
+Counterpart of ``jsa_rag_tpu/train/rag_model.py``. Host side as in the JAX
+package: tokenisation, id -> passage resolution, the prior/posterior union
+and the fast_deocde1/2 selection run on numpy; the towers, the index search,
+the losses and the decode run on the model's device. ``params`` is the dict
+of ``model_io.load_or_initialize_model``: ``params["retriever"]`` (and, in
+the jsa mode, ``params["post_retriever"]``) is the ``DualEncoderRetriever``
+module whose weights a call uses, ``params["generator"]``/``params["lora"]``
+the generator's tensors.
 
-The training half — ``retrieve_pair``, ``build_union``, ``retrieval_ctx``,
-``build_batch``, ``loss_and_grad_fn``, ``forward`` and the
-``retrieve_with_rerank`` path — comes with the training slice (ROADMAP queue
-A items 7-9); reaching it raises ``NotImplementedError``.
+Training covers the jsa mode (``retrieve_pair``, ``build_union``,
+``retrieval_ctx``/``build_batch``, ``loss_and_grad_fn``); the rag, vrag and
+concat batches are ROADMAP queue A item 7, ``retrieve_with_rerank`` item 11.
 """
 
 from __future__ import annotations
@@ -31,11 +31,13 @@ from ..device import resolve_device
 from ..index.build import build_index as _build_index, make_encode_fn
 from ..models.lm import (LMConfig, greedy_generate, lm_loss,
                          lm_sequence_logprob)
-from ..models.lora import LoRAConfig, gen_params
+from ..models.lora import LoRAConfig
 from ..models.retriever import DualEncoderRetriever
+from .modes import A7, MODE_LOSSES, ApplyFns
 
 BERT_MAX_SEQ_LENGTH = 512  # reference: src/rag.py:40
-TRAINING_SLICE = "belongs to the training slice: ROADMAP queue A items 7-9"
+RERANK = ("retrieve_with_rerank is not ported yet: ROADMAP queue A item "
+          "11")
 
 
 class RAGModel:
@@ -64,10 +66,27 @@ class RAGModel:
             text_maxlength=opt.text_maxlength,
             target_maxlength=opt.target_maxlength,
         )
+        self.fns = ApplyFns(
+            gen_cfg=gen_cfg,
+            lora_cfg=lora_cfg,
+            temperature_gold=opt.temperature_gold,
+            temperature_jsa=opt.temperature_jsa,
+            temperature_lm=opt.temperature_lm,
+            mis_step=opt.mis_step,
+            mis_topk=opt.mis_topk,
+            n_context=opt.n_context,
+            use_all_mis=opt.use_all_mis,
+            simplify_jsa=opt.simplify_JSA,
+            decouple=opt.decouple_encoder,
+            contrastive=opt.contrastive_learning,
+            reduce_norm=opt.reduce_norm,
+            eps=opt.eps,
+            train_dropout=opt.dropout > 0.0,
+        )
 
     def gen_params(self, params) -> dict:
         """The generator weights a forward uses (LoRA merged when on)."""
-        return gen_params(params, self.lora_cfg)
+        return self.fns.gen_params(params)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.from_numpy(np.asarray(a)).to(self.device)
@@ -110,14 +129,20 @@ class RAGModel:
         return ids.reshape(b, k, -1), mask.reshape(b, k, -1)
 
     # -------------------------------------------------------------- retrieval
+    def _posterior_params(self, params) -> DualEncoderRetriever:
+        """The posterior retriever: its own towers, the prior's passage
+        tower paired in under decouple, or the prior when there is no
+        posterior (simplify_JSA)."""
+        return self.fns.expand(params)["post_retriever"]
+
     def embed_queries(self, params, texts, posterior: bool = False):
-        """(B,) texts -> (B, H) query embeddings on the model's device."""
-        if posterior:
-            raise NotImplementedError(f"the posterior tower {TRAINING_SLICE}")
+        """(B,) texts -> (B, H) query embeddings on the model's device
+        (retrieval: no autograd)."""
         ids, mask = self.retriever_tokenize(texts)
+        tower = (self._posterior_params(params) if posterior
+                 else params["retriever"])
         with torch.no_grad():
-            return params["retriever"].embed_queries(self._tensor(ids),
-                                                     self._tensor(mask))
+            return tower.embed_queries(self._tensor(ids), self._tensor(mask))
 
     def retrieve(self, index, params, queries: list[str], topk: int,
                  posterior: bool = False, iter_stats: dict | None = None,
@@ -127,7 +152,7 @@ class RAGModel:
         (retrieval over-fetches 8 so filtered rows still fill topk); pass
         ``q_emb`` when the caller already embedded the queries."""
         if self.opt.retrieve_with_rerank:
-            raise NotImplementedError(f"retrieve_with_rerank {TRAINING_SLICE}")
+            raise NotImplementedError(RERANK)
         t0 = time.time()
         if q_emb is None:
             q_emb = self.embed_queries(params, queries, posterior=posterior)
@@ -212,25 +237,190 @@ class RAGModel:
             out.append(row)
         return out
 
-    # ----------------------------------------------------- training half
-    def retrieve_pair(self, *args, **kwargs):
-        raise NotImplementedError(f"retrieve_pair {TRAINING_SLICE}")
+    # --------------------------------------------------------- training
+    def retrieve_pair(self, index, params, queries, post_queries, topk,
+                      iter_stats: dict | None = None):
+        """Prior + posterior retrieval: both query towers embed, then ONE
+        search over the concatenated 2B queries (``rag_model.py:198-262``).
+        Returns (prior ids, post ids, prior passages, post passages)."""
+        if self.opt.retrieve_with_rerank:
+            raise NotImplementedError(RERANK)
+        t0 = time.time()
+        prior_q = self.embed_queries(params, queries)
+        post_q = self.embed_queries(params, post_queries, posterior=True)
+        q_all = torch.cat([prior_q, post_q]).to(torch.float32)
+        # storage operands fetched per call: a refresh rewrites the rows
+        # (and hybrid re-derives its coarse copy)
+        search, store_ops = index.fused_search_fn(min(topk,
+                                                      index.n_passages))
+        _, ids = search(q_all, *store_ops)
+        ids = ids.cpu().numpy()
+        b = len(queries)
+        prior_ids, post_ids = ids[:b], ids[b:]
+        if iter_stats is not None:
+            iter_stats["runtime/search"] = (time.time() - t0, 1)
+        return (prior_ids, post_ids, self.passage_texts(prior_ids),
+                self.passage_texts(post_ids))
 
     @staticmethod
-    def build_union(*args, **kwargs):
-        raise NotImplementedError(f"build_union {TRAINING_SLICE}")
+    def build_union(post_ids: np.ndarray, prior_ids: np.ndarray):
+        """First-occurrence union of (post, prior) id lists per row, padded
+        to the static width U = post_K + prior_K with a validity mask
+        (``rag_model.py:328-346``)."""
+        b, k1 = post_ids.shape
+        k2 = prior_ids.shape[1]
+        u = k1 + k2
+        union = np.zeros((b, u), np.int64)
+        valid = np.zeros((b, u), bool)
+        for i in range(b):
+            seen: dict[int, None] = {}
+            for x in np.concatenate([post_ids[i], prior_ids[i]]):
+                seen.setdefault(int(x))
+            ids = list(seen)
+            union[i, :len(ids)] = ids
+            union[i, len(ids):] = ids[0]  # pad with a real id (masked out)
+            valid[i, :len(ids)] = True
+        return union, valid
 
-    def retrieval_ctx(self, *args, **kwargs):
-        raise NotImplementedError(f"retrieval_ctx {TRAINING_SLICE}")
+    def _generator_rows(self, queries, passages, targets):
+        ids, labels, mask = build_training_batch(
+            self.generator_tokenizer, queries, passages, targets,
+            self.prompt_cfg)
+        return self._tensor(ids), self._tensor(labels), self._tensor(mask)
 
-    def build_batch(self, *args, **kwargs):
-        raise NotImplementedError(f"build_batch {TRAINING_SLICE}")
+    def retrieval_ctx(self, mode: str, index, params, queries, targets,
+                      iter_stats: dict | None = None, file_passages=None,
+                      batch_metadata=None, filtering_fun=None) -> dict:
+        """The retrieval phase of ``build_batch`` (``rag_model.py:396-467``),
+        jsa mode: both searches, the union and its passages."""
+        if mode != "jsa":
+            raise NotImplementedError(f"the {mode} training batch {A7}")
+        topk = self.opt.n_context
+        if self.opt.closed_book and file_passages is None:
+            file_passages = [[] for _ in queries]
+        use_file = ((self.opt.use_file_passages or self.opt.closed_book)
+                    and file_passages is not None)
+        # retrieval queries have dialog speaker tags stripped
+        # (reference: src/rag.py:688-691)
+        from ..data.prompts import remove_speakers
 
-    def loss_and_grad_fn(self, *args, **kwargs):
-        raise NotImplementedError(f"loss_and_grad_fn {TRAINING_SLICE}")
+        queries_r = [remove_speakers(q) for q in queries]
+        ctx: dict = {"use_file": use_file,
+                     "last_info": {"query": queries[0],
+                                   "response": targets[0]}}
+        post_queries = [f"{q} [SEP] {t}" for q, t in zip(queries_r, targets)]
+        if use_file:
+            # the supplied lists capped at retriever_n_context; no search
+            u_passages, valid = self.supplied_pool(file_passages)
+            post_passages = [p[:topk] for p in u_passages]
+        elif filtering_fun is not None:
+            # filtering is host-side: two calls
+            retr_kw = dict(iter_stats=iter_stats,
+                           batch_metadata=batch_metadata,
+                           filtering_fun=filtering_fun)
+            post_ids, _, post_passages = self.retrieve(
+                index, params, post_queries, topk, posterior=True, **retr_kw)
+            prior_ids, _, _ = self.retrieve(index, params, queries_r, topk,
+                                            **retr_kw)
+            union, valid = self.build_union(post_ids, prior_ids)
+            u_passages = self.passage_texts(union)
+        else:
+            prior_ids, post_ids, prior_passages, post_passages = \
+                self.retrieve_pair(index, params, queries_r, post_queries,
+                                   topk, iter_stats=iter_stats)
+            union, valid = self.build_union(post_ids, prior_ids)
+            u_passages = self.passage_texts(union)
+            ctx["last_info"].update({
+                "prior_retrieved_ids": prior_ids[0].tolist(),
+                "post_retrieved_ids": post_ids[0].tolist(),
+                "prior_retrieved_texts": [p.get("text", "")
+                                          for p in prior_passages[0]],
+            })
+        ctx.update(u_passages=u_passages, post_passages=post_passages,
+                   valid=valid, post_queries=post_queries)
+        return ctx
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(f"forward {TRAINING_SLICE}")
+    def build_batch(self, mode: str, index, params, queries, targets,
+                    iter_stats: dict | None = None, file_passages=None,
+                    batch_metadata=None, filtering_fun=None,
+                    retrieval: dict | None = None) -> dict:
+        """Retrieve and tokenise everything the jsa loss needs
+        (``rag_model.py:469-575``) -> dict of tensors on the model's
+        device."""
+        if mode != "jsa":
+            raise NotImplementedError(f"the {mode} training batch {A7}")
+        if retrieval is None:
+            retrieval = self.retrieval_ctx(
+                mode, index, params, queries, targets,
+                iter_stats=iter_stats, file_passages=file_passages,
+                batch_metadata=batch_metadata, filtering_fun=filtering_fun)
+        self.last_info = retrieval["last_info"]
+        u_passages = retrieval["u_passages"]
+        post_passages = retrieval["post_passages"]
+        valid = retrieval["valid"]
+        q_ids, q_mask = self.retriever_tokenize(queries)
+        pq_ids, pq_mask = self.retriever_tokenize(retrieval["post_queries"])
+        if not self.opt.unil_postandprior:
+            # candidate set = posterior top-k only (src/rag.py:1873-1896);
+            # supplied rows keep their pad mask
+            u_passages = post_passages
+            if retrieval["use_file"]:
+                valid = valid[:, :len(post_passages[0])]
+            else:
+                valid = np.ones((len(queries), len(post_passages[0])), bool)
+        u_ids, u_mask = self._tokenize_passage_matrix(u_passages)
+        g = self._generator_rows(queries, u_passages, targets)
+        t = self._tensor
+        batch = {
+            "q_ids": t(q_ids), "q_mask": t(q_mask),
+            "post_q_ids": t(pq_ids), "post_q_mask": t(pq_mask),
+            "union_passage_ids": t(u_ids), "union_passage_mask": t(u_mask),
+            "union_valid": t(valid),
+            "gen_ids": g[0], "gen_labels": g[1], "gen_mask": g[2],
+        }
+        if self.opt.contrastive_learning and self.opt.training_sample_num:
+            # corpus-uniform negatives for the contrastive normaliser
+            # (rag_model.py:559-573)
+            self._neg_seed = getattr(self, "_neg_seed", 0) + 1
+            rng = np.random.default_rng(self.opt.seed * 100003
+                                        + self._neg_seed)
+            neg_ids = rng.integers(
+                0, len(self.store),
+                (len(queries), self.opt.training_sample_num))
+            n_ids, n_mask = self._tokenize_passage_matrix(
+                self.passage_texts(neg_ids))
+            batch["neg_passage_ids"] = t(n_ids)
+            batch["neg_passage_mask"] = t(n_mask)
+        return batch
+
+    def loss_and_grad_fn(self, mode: str):
+        """-> fn(params, batch, rng, leaves) -> ((loss, aux), grads): the
+        mode loss and its gradients with respect to ``leaves`` (a list of
+        tensors), None where the loss does not reach a leaf."""
+        if mode not in MODE_LOSSES:
+            raise ValueError(
+                f"unknown training mode {mode!r}; expected one of "
+                f"{sorted(MODE_LOSSES)} (gold_score_mode / gen_method)")
+        loss_fn = MODE_LOSSES[mode]
+
+        def value_and_grad(params, batch, rng, leaves):
+            loss, aux = loss_fn(self.fns, params, batch, rng)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            return (loss.detach(), aux), grads
+
+        return value_and_grad
+
+    def forward(self, mode: str, index, params, queries, targets, rng,
+                iter_stats: dict | None = None):
+        """One forward (loss only), dropout off (the reference's .eval(),
+        evaluate.py:215)."""
+        if mode not in MODE_LOSSES:
+            raise ValueError(f"unknown training mode {mode!r}")
+        batch = self.build_batch(mode, index, params, queries, targets,
+                                 iter_stats=iter_stats)
+        eval_fns = dataclasses.replace(self.fns, train_dropout=False)
+        with torch.no_grad():
+            return MODE_LOSSES[mode](eval_fns, params, batch, rng)
 
     # -------------------------------------------------------------- generation
     def generate(self, params, queries, passages, *, max_new_tokens=None,

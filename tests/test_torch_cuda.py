@@ -5,9 +5,10 @@ only, so they also run where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances. B1 (int8r): the kernel and the plain version do the same f32
-arithmetic (the int8 products are exact integers in both), so candidate
-scores agree to 1e-5 relative and ids are equal except among tied scores.
+Tolerances. B1 (int8r) and B2 (single-plane int8): the kernel and the plain
+version do the same f32 arithmetic (the int8 products are exact integers in
+both), so candidate scores agree to 1e-5 relative and ids are equal except
+among tied scores.
 B3 (dense): the bf16 kernel scores the (hi, lo) bf16 split of the f32 query,
 which leaves <= 2^-18 * sum|q_i x_i| per score, and sums in another order
 than cuBLAS's f32 product; for unit-norm rows and queries the scores agree
@@ -109,6 +110,87 @@ def test_search_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(gs.cpu().numpy(), cs.numpy(), rtol=1e-5,
                                atol=1e-5)
     assert (gi[:, 0].cpu() == torch.arange(b)).all()
+    assert int(gi.max()) < 4900
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,nv,d,k_sel,tile", [
+    (2, 8192, 7415, 1024, 40, 256),   # the train step: prior + posterior
+    (64, 8192, 8000, 1024, 40, 256),
+    (512, 4096, 4000, 1024, 400, 256),
+    (5, 4099, 3000, 1024, 4096, 256),  # more candidates than valid rows
+    (33, 777, 700, 80, 50, 128),
+])
+def test_int8_kernel_matches_plain(cuda, b, n, nv, d, k_sel, tile):
+    """Kernel B2 (one query plane) against ``scan_topt_int8_plain``."""
+    g = torch.Generator(device=cuda).manual_seed(b + n + 1)
+    v, s = tp2.quantize_int8(torch.randn((n, d), generator=g, device=cuda))
+    qv, qs = tp2.quantize_int8(torch.randn((b, d), generator=g, device=cuda))
+    t = tp2._pool_t(k_sel, nv, tile, 4)
+    args = (qv, qs, v, s.reshape(1, -1), nv, tile, t)
+    before = tp2.scan_topt_int8.launches
+    ks, ki = tp2.scan_topt_int8(*args)
+    ps, pi = tp2.scan_topt_int8_plain(*args)
+    torch.cuda.synchronize()
+    assert tp2.scan_topt_int8.launches == before + 1
+    assert ks.shape == (-(-n // tile), b, t) and ki.dtype == torch.int32
+    assert int(ki.max()) < nv
+    _assert_same_candidates(ks, ki, ps, pi)
+
+
+@pytest.mark.cuda
+def test_int8_kernel_grid_past_65535_index_tiles(cuda):
+    """Kernel B2 over 65,537 index tiles of 128 rows with two query
+    tiles (d = 16 keeps the plane at 134 MB)."""
+    tile, d, b = 128, 16, 40
+    n = 65_536 * tile + 300
+    nv = n - 5
+    g = torch.Generator(device=cuda).manual_seed(17)
+    v, s = tp2.quantize_int8(torch.randn((n, d), generator=g, device=cuda))
+    qv, qs = tp2.quantize_int8(torch.randn((b, d), generator=g, device=cuda))
+    t = tp2._pool_t(400, nv, tile, 4)
+    args = (qv, qs, v, s.reshape(1, -1), nv, tile, t)
+    ks, ki = tp2.scan_topt_int8(*args)
+    ps, pi = tp2.scan_topt_int8_plain(*args)
+    torch.cuda.synchronize()
+    assert int(ki[65_535:].min()) >= 65_535 * tile
+    assert int(ki.max()) < nv
+    _assert_same_candidates(ks, ki, ps, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["int8", "hybrid", "rows1", "cols"])
+def test_int8_search_on_card_matches_cpu(cuda, branch):
+    """Every B2 branch of ``mips_topk_int8_t`` on the card returns the
+    CPU path's (plain scan) top-k, gold top-1 included."""
+    g = torch.Generator().manual_seed(7)
+    n, d, b, k = 5000, 512, 9, 50
+    e = torch.randn((n, d), generator=g)
+    e = e / e.norm(dim=1, keepdim=True)
+    q = e[:b] + 0.05 * torch.randn((b, d), generator=g)
+    if branch == "int8":
+        v, s = tp2.quantize_int8(e)
+        ops, kw = (v, s.reshape(1, -1)), {}
+    elif branch == "hybrid":
+        f16 = e.to(torch.float16)
+        v, s = tp2.hybrid_int8_from_f16(f16)
+        ops, kw = (v, s.reshape(1, -1)), dict(refine=4, f16_rows=f16)
+    else:
+        v1, s1, v2, s2 = tp2.quantize_int8_residual(e)
+        ops = (v1, s1.reshape(1, -1))
+        kw = dict(refine=4, res_rows=v2, res_scale=s2.reshape(1, -1),
+                  int8r_refine=branch)
+    cs, ci = tp2.mips_topk_int8_t(q, *ops, k, valid_n=4900, **kw)
+    before = tp2.scan_topt_int8.launches
+    gs, gi = tp2.mips_topk_int8_t(
+        q.to(cuda), *(o.to(cuda) for o in ops), k, valid_n=4900,
+        **{k_: (v_.to(cuda) if torch.is_tensor(v_) else v_)
+           for k_, v_ in kw.items()})
+    assert tp2.scan_topt_int8.launches == before + 1
+    np.testing.assert_allclose(gs.cpu().numpy(), cs.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    if branch != "int8":
+        assert (gi[:, 0].cpu() == torch.arange(b)).all()
     assert int(gi.max()) < 4900
 
 

@@ -119,6 +119,39 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
         mips_topt.scan_topt_int8r2(q, qs, q, qs, e, es, 64, 128, 129)
 
 
+@pytest.mark.parametrize("storage", ["int8", "hybrid", "int8r-rows1",
+                                     "int8r-cols"])
+def test_cpu_int8_searches_never_launch_b2(storage):
+    """Every storage behind kernel B2 runs its plain version on the CPU."""
+    launches = mips_topt.scan_topt_int8.launches
+    dtype, _, refine = storage.partition("-")
+    idx = ShardedFlatIndex(300, 16, dtype, device="cpu",
+                           int8r_refine=refine or "rows")
+    rng = np.random.default_rng(0)
+    idx.set_embeddings(0, rng.standard_normal((300, 16)).astype(np.float32))
+    s, i = idx.search(rng.standard_normal((3, 16)).astype(np.float32), 5)
+    assert s.device.type == "cpu" and i.shape == (3, 5)
+    assert mips_topt.scan_topt_int8.launches == launches
+
+
+def test_int8_wrapper_refuses_what_it_cannot_take():
+    q = torch.zeros((2, 16), dtype=torch.int8)
+    qs = torch.ones((2, 1))
+    e = torch.zeros((64, 16), dtype=torch.int8)
+    es = torch.ones((1, 64))
+    with pytest.raises(TypeError):
+        mips_topt.scan_topt_int8(q.float(), qs, e, es, 64, 128, 4)
+    with pytest.raises(ValueError):
+        mips_topt.scan_topt_int8(q, qs, e, es, 65, 128, 4)
+    with pytest.raises(ValueError):
+        mips_topt.scan_topt_int8(q, qs, e.t().contiguous().t(), es, 64, 128,
+                                 4)  # not contiguous
+    with pytest.raises(ValueError):
+        mips_topt.scan_topt_int8(q, qs, e, es, 64, 128, 129)
+    with pytest.raises(ValueError, match="refine"):
+        mips_topt.mips_topk_int8_t(q.float(), e, es, 4, refine=2)
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_fails_without_a_card_or_the_repo(where, tmp_path):
     """No CUDA here: the smoke exits non-zero and prints no result line;

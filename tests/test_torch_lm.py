@@ -221,7 +221,9 @@ def test_lora_apply_matches_jax():
             jax.tree_util.tree_leaves(convert.lm_params_to_numpy(tm)),
             jax.tree_util.tree_leaves(jm)):
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
-    assert tm["layers"][0]["attn_norm"] is tp["layers"][0]["attn_norm"]
+    # untouched leaves are the base's storage, detached (not copied)
+    assert (tm["layers"][0]["attn_norm"].data_ptr()
+            == tp["layers"][0]["attn_norm"].data_ptr())
     ids, mask, _ = _batch()
     merged = tlora.gen_params({"generator": tp, "lora": tl}, tcfg_l)
     np.testing.assert_allclose(
