@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port: one CUDA card, the index-serving path,
-the evaluate path and the jsa training path at full width, every kernel of
-those paths against its plain PyTorch version.
+the evaluate path and the jsa, rag, vrag and concat training paths at full
+width, every kernel of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -9,7 +9,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. environment — the card's name and power limit, CUDA present, TF32 off;
 2. build — ``nvcc`` builds every kernel (B1 ``topt_int8r2`` and B2
-   ``topt_int8``, one template in ``topt_int8r2.cu``; B3 ``topt_dense``)
+   ``topt_int8``, one template in ``topt_int8r2.cu``; B3 ``topt_dense``,
+   B4 ``topt_f16h`` and B5 ``topt_f16``, one template in ``topt_dense.cu``)
    from ``csrc/``, one process per source, concurrently;
 3. B1 against its plain version on the card, at the index-tile shapes the
    serve path gives it (d=1024, N=262,144 with 777 padded rows, B=64, 400
@@ -90,7 +91,42 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     the final weights, the derived int8 copy rebuilt;
 13. B2 timed with CUDA events at B=2, 64 and 512 on the 1.3M-row coarse
     copy, beside its plain version (B=64), ``torch._int_mm`` of the same
-    int8 operands (the bare product) and its bound.
+    int8 operands (the bare product) and its bound;
+14. B4 and B5 against their plain versions on the card: unit fp16 rows,
+    d=1024, N=262,144 with 777 padded rows, B=2 and 64 with 40 and 400
+    candidates; B=5, N=4,099 with 3,000 valid and more candidates than
+    valid rows (and ``mips_topk_f16_t`` at k=1,000 there: no placeholder id
+    through the rescore); a slab of rows whose components are all fp16
+    subnormals;
+15. rag training at full width — a float16 index of 1,300,000 x 1024 (the
+    first 16,384 rows from the initial passage tower, the rest clustered;
+    the f32 rows kept for the oracle) saved, then ``main`` with the
+    flagship options but ``--gold_score_mode rag --index_dtype float16
+    --refine_r 4 --load_index_path``, 8 steps: B4's launches, recall@10 of
+    main's searches against exact f32, B4 against its plain version on
+    main's first scan, every step's losses, wall split and device time,
+    peak memory; the checkpoint: generator base bit-identical, every
+    other trainable leaf moved;
+16. vrag (union KL, ``--use_gradient_checkpoint_retriever true``) and
+    concat (``--gen_method concat``) on the saved index, 4 steps each, with
+    the same records; vrag's posterior passage tower bit-identical, and
+    under concat every retriever leaf equal to init x prod(1 - lr_t * wd)
+    of its group, the LoRA leaves moved;
+17. the double-buffered refresh and pipelined retrieval over the 16,384
+    text passages: rag, float16, ``--refresh_index 0-3:2
+    --incremental_refresh_batches 32 --pipeline_retrieval true``: the swap
+    step against the one the sweep's length predicts, the staging store's
+    bytes, every stored row finite and of unit norm within fp16 rounding,
+    recall@10 of the searches after the swap against exact f32 over the
+    stored rows;
+18. ``python -m jsa_rag_tpu_torch.evaluate``'s ``main`` at ``--model_size
+    large --precision bf16`` on the saved float16 index with ``--refine_r
+    0`` (16 questions, batches of 8, generation_max_length 32): B5's
+    launches, recall@10 of main's searches and recall@100 of its index, B5
+    against its plain version on main's first scan; then B4 and B5 timed
+    with CUDA events at B=2, 64 and 512 on the 1.3M rows, beside their
+    plain versions (B=64), ``torch.matmul`` of the fp16 query against the
+    rows (the bare product) and their bounds.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, the ``kernels`` JSON object and
@@ -131,6 +167,14 @@ DEMO_EM_BAR = 0.945  # the JAX package recorded 0.955 on the same data
 # than cuBLAS; the f32 kernel is an FMA loop against cuBLAS's f32 product
 # (d * 2^-24 ~ 1.5e-5 worst case at d=256, ~1e-6 typical)
 DENSE_RTOL = {"bfloat16": 1e-4, "float32": 1e-5}
+# B4 and B5 against their plain versions, relative to |q|·|x| (q the query
+# the kernel reads: for B4 its fp16 plane times 1/s): B4 and its plain
+# version multiply the same fp16 query plane by the rows, so only the
+# order of the f32 sums differs; B5 scores the query split into two fp16
+# planes (<= 2^-22 sum|q_i x_i| left, 2.4e-7 for unit rows) against the
+# plain version's f32 product (d * 2^-24 ~ 6e-5 worst case at d=1024, ~1e-6
+# typical)
+F16_RTOL = 1e-5
 # B2 against its plain version, relative to |q|·|x| of the dequantised
 # query and row: both compute (acc * qs) * es in f32 from the same int8
 # codes, so they agree bit for bit; this bound is the acceptance line
@@ -154,6 +198,7 @@ FLAGSHIP = ["--task", "qa", "--qa_prompt_format", "{question}",
             "--model_size", MODEL_SIZE, "--param_dtype", "float32",
             "--max_vocab", "32000", "--seed", str(SEED)]
 TRAIN_STEPS = 8  # flagship 20,000
+MODE_STEPS = 4   # the vrag and concat cells
 # greedy decode at bf16 against a cache-free forward: the two run the same
 # bf16 layers on different matmul shapes, so activations round differently;
 # a generated token must be the cache-free argmax or within this many nats
@@ -338,6 +383,74 @@ def compare_served(mt, call, what: str) -> float:
                          f"{kw['valid_n']} d={emb.shape[1]} k={k} T={t}")
 
 
+def f16_bound(b: int, n_rows: int, d: int, n_tiles: int, t: int,
+              planes: int):
+    """B4 (one query plane) and B5 (two): the fp16 rows read once, the f32
+    query read once, the candidates written once; planes*2*B*N*d fp16
+    operations (a product per plane, multiply and add)."""
+    return bound(n_rows * d * 2 + b * d * 4 + n_tiles * b * t * 8,
+                 planes * 2 * b * n_rows * d, PEAK_BF16_OPS_PER_S)
+
+
+def compare_f16(mt, kind: str, q, emb, nv: int, tile: int, t: int,
+                what: str) -> float:
+    """B4 (``kind`` "f16h") or B5 ("f16") against its plain version;
+    -> max abs error. Scores within F16_RTOL·|q|·|x| (q the query the
+    kernel reads) and the same exhausted (-1) slots; where the ids differ,
+    the kernel's row must score (in f64 on the stored values) within twice
+    that of the plain version's pick."""
+    import torch
+
+    ks, ki = getattr(mt, f"scan_topt_{kind}")(q, emb, nv, tile, t)
+    ps, pi = getattr(mt, f"scan_topt_{kind}_plain")(q, emb, nv, tile, t)
+    torch.cuda.synchronize()
+    if kind == "f16h":
+        qh, _, inv_s = mt.f16_query_planes(q, 1)
+        q = qh.float() * inv_s[:, None]
+    live = pi >= 0
+    if not (torch.equal(ki >= 0, live) and torch.equal(ks[~live],
+                                                       ps[~live])):
+        raise AssertionError(f"{what}: exhausted slots differ")
+    row_norm = torch.linalg.vector_norm(emb, dim=1, dtype=torch.float32)
+    tol = F16_RTOL * (q.norm(dim=1)[None, :, None]
+                      * row_norm[pi.clamp(min=0).long()])
+    err = torch.where(live, (ks - ps).abs(), 0.0)
+    if bool((err > tol).any()):
+        raise AssertionError(f"{what}: {int((err > tol).sum())} scores "
+                             f"differ by more than {F16_RTOL}·|q|·|x|")
+    differ = ki != pi
+    where = differ.nonzero()
+    if where.shape[0]:
+        true = (q.double()[where[:, 1]] * emb[ki[differ].long()].double()
+                ).sum(-1)
+        gap = (true - ps[differ].double()).abs()
+        if bool((gap > 2 * tol[differ]).any()):
+            raise AssertionError(f"{what}: a differing id scores "
+                                 f"{float(gap.max()):.3g} off the plain "
+                                 f"version's pick")
+    max_err = float(err.max())
+    log(f"  {'B4' if kind == 'f16h' else 'B5'} {what}: candidates "
+        f"{tuple(ks.shape)}, ids equal {int((~differ).sum())}/"
+        f"{differ.numel()} (rest within tolerance), max_abs_err "
+        f"{max_err:.3g}")
+    return max_err
+
+
+def compare_f16_call(mt, call, what: str) -> float:
+    """B4 or B5 against its plain version on the inputs of one recorded
+    ``mips_topk_t`` call over fp16 rows, at the tile and T that call gave
+    the kernel (B4 for refine > 0, B5 for 0)."""
+    (q, emb, k), kw, _ = call
+    n = emb.shape[0]
+    refine = kw["refine"]
+    tile, t = mt.scan_geometry(n, min(refine * k, n) if refine else k,
+                               kw["pool_n"])
+    return compare_f16(mt, "f16h" if refine else "f16",
+                       q.float().contiguous(), emb, kw["valid_n"], tile, t,
+                       f"{what} B={q.shape[0]} N={n} valid={kw['valid_n']} "
+                       f"k={k} refine={refine} T={t}")
+
+
 class KeepFloats:
     """Index stand-in for ``build_index``: forwards every write and keeps
     the float rows, which the exact oracle needs."""
@@ -495,6 +608,19 @@ def recall_against_oracle(torch, q, ids, e32, k: int) -> float:
     return float(torch.tensor([
         len(set(a.tolist()) & set(o.tolist())) / k
         for a, o in zip(ids, oracle)]).mean())
+
+
+def write_questions(torch, path: str, store, n: int, seed: int) -> str:
+    """``n`` questions from text passages picked by ``seed``: the first six
+    words of a passage, its next two the answer."""
+    rows = torch.randperm(N_TEXT, generator=torch.Generator().manual_seed(
+        seed))[:n].tolist()
+    with open(path, "w") as f:
+        for i in rows:
+            words = store[i]["text"].split()
+            f.write(json.dumps({"question": " ".join(words[:6]),
+                                "answers": [" ".join(words[6:8])]}) + "\n")
+    return path
 
 
 # ------------------------------------------------------------ phases 4 + 5
@@ -883,13 +1009,7 @@ def eval_phase(torch, mt, g, dev, work) -> dict:
     store = PassageStore.synthetic(N_TEXT, seed=SEED)
     passages = os.path.join(work, "passages.jsonl")
     questions = os.path.join(work, "questions.jsonl")
-    rows = torch.randperm(N_TEXT, generator=torch.Generator().manual_seed(
-        SEED))[:32].tolist()
-    with open(questions, "w") as f:
-        for i in rows:
-            words = store[i]["text"].split()
-            f.write(json.dumps({"question": " ".join(words[:6]),
-                                "answers": [" ".join(words[6:8])]}) + "\n")
+    write_questions(torch, questions, store, 32, SEED)
     argv = ["--model_size", MODEL_SIZE, "--precision", "bf16",
             "--max_vocab", "32000", "--seed", str(SEED), "--device", dev.type,
             "--index_dtype", "bfloat16", "--n_context", "10",
@@ -1113,30 +1233,38 @@ def _leaf_groups(tree_init, tree_final):
     return {p: (fi[p], ff[p]) for p in fi}
 
 
-def check_invariants(np, init, final, opt) -> dict:
-    """The checkpoint against the initial weights: the generator base and
-    the posterior passage tower bit-identical; the prior passage tower (no
-    gradient under jsa; decayed by AdamW) equal to init * prod(1 - lr_t *
-    wd); every other trainable leaf moved."""
+def check_invariants(np, init, final, opt, mode: str) -> dict:
+    """The checkpoint against the initial weights, by the optimizer's labels
+    (``train/optim.py::leaf_label``): frozen leaves (the generator base
+    under LoRA, the posterior passage tower) bit-identical; leaves the
+    mode's loss never reaches (jsa: the prior passage tower; concat: every
+    retriever leaf) equal to init * prod(1 - lr_t * wd) of their group,
+    optax's decay of zero-gradient leaves; every other leaf moved."""
+    from jsa_rag_tpu_torch.train.optim import leaf_label
     from jsa_rag_tpu_torch.utils.schedulers import make_lr_schedule
 
-    sched = make_lr_schedule(opt.scheduler, opt.lr_retriever,
-                             opt.warmup_steps,
-                             opt.scheduler_steps or opt.total_steps)
-    decay = np.float32(1.0)
-    for c in range(opt.total_steps):
-        decay *= np.float32(1.0) - np.float32(float(sched(c))) * np.float32(
-            opt.weight_decay)
+    decay = {}
+    for label, lr in (("lm", opt.lr), ("retr", opt.lr_retriever)):
+        sched = make_lr_schedule(opt.scheduler, lr, opt.warmup_steps,
+                                 opt.scheduler_steps or opt.total_steps)
+        decay[label] = np.float32(1.0)
+        for c in range(opt.total_steps):
+            decay[label] *= np.float32(1.0) - np.float32(
+                float(sched(c))) * np.float32(opt.weight_decay)
+    lora = opt.use_lora and "lora" in final
     counts = {"frozen_identical": 0, "decayed": 0, "moved": 0}
     worst = 0.0
     for path, (a, b) in _leaf_groups(init, final).items():
-        if path[0] == "generator" or path[:2] == ("post_retriever",
-                                                  "passage"):
+        label = leaf_label(path, opt, lora)
+        unused = (path[:2] == ("retriever", "passage") if mode == "jsa"
+                  else "retriever" in path[0] if mode == "concat"
+                  else False)
+        if label == "frozen":
             if not np.array_equal(a, b):
                 raise AssertionError(f"frozen leaf {path} changed")
             counts["frozen_identical"] += 1
-        elif path[:2] == ("retriever", "passage"):
-            want = a * decay
+        elif unused:
+            want = a * decay[label]
             err = np.abs(b - want) / np.maximum(np.abs(want), 1e-30)
             worst = max(worst, float(err.max()))
             if float(err.max()) > 2e-6:
@@ -1147,9 +1275,96 @@ def check_invariants(np, init, final, opt) -> dict:
             if np.array_equal(a, b):
                 raise AssertionError(f"trainable leaf {path} did not move")
             counts["moved"] += 1
-    counts["decay_factor"] = float(decay)
+    counts["decay_factor"] = {k: float(v) for k, v in decay.items()}
     counts["decay_max_rel_err"] = worst
     return counts
+
+
+def timed_train_main(torch, argv, counter, record, parts) -> dict:
+    """``python -m jsa_rag_tpu_torch.train``'s ``main(argv)`` with every
+    train step bracketed by CUDA events, each (owner, name, label) of
+    ``parts`` by ``device_spans`` and the calls of ``record`` (owner, name)
+    recorded; ``counter`` (a kernel wrapper) is set to 0 just before main
+    and read just after."""
+    from jsa_rag_tpu_torch.train import __main__ as train_cli
+    from jsa_rag_tpu_torch.train import loop
+
+    step_events = []
+    real_make = loop.make_train_step
+
+    def timed_make(*a, **kw):
+        step_fn = real_make(*a, **kw)
+
+        def timed(*sa, **skw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step_fn(*sa, **skw)
+            stop.record()
+            step_events.append((start, stop))
+            return out
+        return timed
+
+    loop.make_train_step = timed_make
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_accumulated_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with recording(*record) as calls, device_spans(parts) as spans:
+            counter.launches = 0  # main path starts
+            final_step = train_cli.main(argv)
+            launches = counter.launches  # main path ends
+    finally:
+        loop.make_train_step = real_make
+    torch.cuda.synchronize()
+    return {
+        "final_step": final_step, "launches": launches, "calls": calls,
+        "main_s": time.perf_counter() - t0,
+        "peak": torch.cuda.max_memory_allocated(),
+        "total": torch.cuda.get_device_properties(0).total_memory,
+        # allocations the caching allocator retried after freeing its
+        # cache (each retry frees with cudaFree, which waits for the device)
+        "retries": torch.cuda.memory_stats()["num_alloc_retries"],
+        "device_ms": [a.elapsed_time(b) for a, b in step_events],
+        "part_ms": {k: [a.elapsed_time(b) for a, b in v]
+                    for k, v in spans.items()}}
+
+
+def step_records(run: dict, metrics: list, keys, n_steps: int) -> list:
+    """Check and log each step of a ``timed_train_main`` run against its
+    metrics.jsonl: every value of ``keys`` finite; -> per-step records
+    (losses, the loop's ``runtime/*`` wall split, device ms and parts)."""
+    device_ms = run["device_ms"]
+    if len(metrics) != n_steps or len(device_ms) != n_steps:
+        raise AssertionError(f"{len(metrics)} metric lines, "
+                             f"{len(device_ms)} timed steps")
+    # a part called several times a step (vrag embeds three passage sets)
+    # is summed over the step's calls
+    part_ms = {}
+    for k, v in run["part_ms"].items():
+        per = len(v) // n_steps
+        if per < 1 or per * n_steps != len(v):
+            raise AssertionError(f"{len(v)} device spans of {k} in "
+                                 f"{n_steps} steps")
+        part_ms[k] = [sum(v[i * per:(i + 1) * per]) for i in range(n_steps)]
+    steps = []
+    for n, (m, dms) in enumerate(zip(metrics, device_ms)):
+        for k in keys:
+            if not math.isfinite(m[k]):
+                raise AssertionError(f"step {m['step']}: {k} = {m[k]}")
+        split = {k.removeprefix("runtime/"): v for k, v in m.items()
+                 if k.startswith("runtime/")}
+        steps.append({"step": m["step"], "wall_s": split, "device_ms": dms,
+                      "device_parts_ms": {k: v[n] for k, v in
+                                          part_ms.items()},
+                      **{k.removeprefix("loss/"): m[k] for k in keys}})
+        log(f"  step {m['step']}: " + ", ".join(
+            f"{k.removeprefix('loss/')} {m[k]:.4f}" for k in keys)
+            + "; wall " + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+            + f"; device {dms:.1f} ms (" + ", ".join(
+                f"{k} {v[n]:.1f}" for k, v in part_ms.items())
+            + f", rest {dms - sum(v[n] for v in part_ms.values()):.1f})")
+    return steps
 
 
 def train_phase(torch, mt, g, dev, work) -> dict:
@@ -1163,7 +1378,7 @@ def train_phase(torch, mt, g, dev, work) -> dict:
     from jsa_rag_tpu_torch.index.flat import ShardedFlatIndex
     from jsa_rag_tpu_torch.model_io import load_or_initialize_model
     from jsa_rag_tpu_torch.train import __main__ as train_cli
-    from jsa_rag_tpu_torch.train import loop, modes
+    from jsa_rag_tpu_torch.train import modes
     from jsa_rag_tpu_torch.train.checkpoint import load_checkpoint
     from jsa_rag_tpu_torch.train.optim import AdamW
     from jsa_rag_tpu_torch.train.rag_model import RAGModel
@@ -1175,14 +1390,8 @@ def train_phase(torch, mt, g, dev, work) -> dict:
     passages = os.path.join(work, "passages.jsonl")
     if not os.path.exists(passages):
         write_passages(passages, store)
-    train_data = os.path.join(work, "train.jsonl")
-    rows = torch.randperm(N_TEXT, generator=torch.Generator().manual_seed(
-        SEED + 2))[:64].tolist()
-    with open(train_data, "w") as f:
-        for i in rows:
-            words = store[i]["text"].split()
-            f.write(json.dumps({"question": " ".join(words[:6]),
-                                "answers": [" ".join(words[6:8])]}) + "\n")
+    train_data = write_questions(torch, os.path.join(work, "train.jsonl"),
+                                 store, 64, SEED + 2)
     argv = FLAGSHIP + [
         "--device", dev.type, "--index_dtype", "hybrid",
         "--passages", passages, "--train_data", train_data,
@@ -1212,26 +1421,6 @@ def train_phase(torch, mt, g, dev, work) -> dict:
 
     argv += ["--load_index_path", os.path.join(work, "index_hybrid"),
              "--name", "train-full"]
-    step_events = []
-    real_make = loop.make_train_step
-
-    def timed_make(*a, **kw):
-        step_fn = real_make(*a, **kw)
-
-        def timed(*sa, **skw):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = step_fn(*sa, **skw)
-            stop.record()
-            step_events.append((start, stop))
-            return out
-        return timed
-
-    loop.make_train_step = timed_make
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.reset_accumulated_memory_stats()
-    t0 = time.perf_counter()
     # where a step's device time goes: the union passage embeddings and the
     # generator CE (forward), the backward, the optimizer update; the rest
     # of the step is the query embeddings, the scores and the MIS chain
@@ -1239,25 +1428,12 @@ def train_phase(torch, mt, g, dev, work) -> dict:
              (modes, "_per_row_ce", "generator CE"),
              (torch.autograd, "grad", "backward"),
              (AdamW, "step", "optimizer")]
-    try:
-        with recording(flat, "mips_topk_int8_t") as searches, \
-                device_spans(parts) as spans:
-            mt.scan_topt_int8.launches = 0  # main path starts
-            final_step = train_cli.main(argv)
-            launches = mt.scan_topt_int8.launches  # main path ends
-    finally:
-        loop.make_train_step = real_make
-    torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    total = torch.cuda.get_device_properties(0).total_memory
-    # allocations the caching allocator retried after freeing its cache
-    # (each retry frees with cudaFree, which waits for the device)
-    retries = torch.cuda.memory_stats()["num_alloc_retries"]
-    device_ms = [a.elapsed_time(b) for a, b in step_events]
-    part_ms = {k: [a.elapsed_time(b) for a, b in v]
-               for k, v in spans.items()}
-    del spans
+    run11 = timed_train_main(torch, argv, mt.scan_topt_int8,
+                             (flat, "mips_topk_int8_t"), parts)
+    final_step, launches, searches = (run11["final_step"], run11["launches"],
+                                      run11["calls"])
+    main_s, peak, total, retries = (run11["main_s"], run11["peak"],
+                                    run11["total"], run11["retries"])
     run = os.path.join(work, "ck", "train-full")
     with open(os.path.join(run, "metrics.jsonl")) as f:
         metrics = [json.loads(line) for line in f]
@@ -1266,32 +1442,9 @@ def train_phase(torch, mt, g, dev, work) -> dict:
         f"{total / 2**30:.2f} GiB, allocator retries {retries}")
     if final_step != TRAIN_STEPS or launches < 1:
         raise AssertionError("training did not run its steps through B2")
-    if len(metrics) != TRAIN_STEPS or len(device_ms) != TRAIN_STEPS:
-        raise AssertionError(f"{len(metrics)} metric lines, "
-                             f"{len(device_ms)} timed steps")
-    if any(len(v) != TRAIN_STEPS for v in part_ms.values()):
-        raise AssertionError(f"device spans per part: "
-                             f"{ {k: len(v) for k, v in part_ms.items()} }")
-    steps = []
-    for n, (m, dms) in enumerate(zip(metrics, device_ms)):
-        for k in ("loss/train_loss", "loss/generator_loss", "accept_rate"):
-            if not math.isfinite(m[k]):
-                raise AssertionError(f"step {m['step']}: {k} = {m[k]}")
-        split = {k.removeprefix("runtime/"): v for k, v in m.items()
-                 if k.startswith("runtime/")}
-        steps.append({"step": m["step"], "loss": m["loss/train_loss"],
-                      "generator_loss": m["loss/generator_loss"],
-                      "accept_rate": m["accept_rate"], "wall_s": split,
-                      "device_ms": dms,
-                      "device_parts_ms": {k: v[n] for k, v in
-                                          part_ms.items()}})
-        log(f"  step {m['step']}: loss {m['loss/train_loss']:.4f}, "
-            f"generator loss {m['loss/generator_loss']:.4f}, accept rate "
-            f"{m['accept_rate']:.3f}; wall " + ", ".join(
-                f"{k} {v:.3f} s" for k, v in split.items())
-            + f"; device {dms:.1f} ms (" + ", ".join(
-                f"{k} {v[n]:.1f}" for k, v in part_ms.items())
-            + f", rest {dms - sum(v[n] for v in part_ms.values()):.1f})")
+    steps = step_records(run11, metrics, ("loss/train_loss",
+                                          "loss/generator_loss",
+                                          "accept_rate"), TRAIN_STEPS)
 
     # main's own searches: recall@10 against exact f32 over the original
     # rows, and B2 against its plain version on the first scan's inputs
@@ -1317,11 +1470,11 @@ def train_phase(torch, mt, g, dev, work) -> dict:
     # the checkpoint main saved at its last step
     state = load_checkpoint(run)
     opt = Options.from_args(argv)
-    inv = check_invariants(np, init, state["params"], opt)
+    inv = check_invariants(np, init, state["params"], opt, "jsa")
     log(f"  checkpoint step {state['step']}: {inv['frozen_identical']} "
         f"frozen leaves bit-identical (generator base, posterior passage "
         f"tower), {inv['decayed']} prior passage-tower leaves = init x "
-        f"{inv['decay_factor']:.9f} (max rel err "
+        f"{inv['decay_factor']['retr']:.9f} (max rel err "
         f"{inv['decay_max_rel_err']:.3g}), {inv['moved']} trainable leaves "
         f"moved")
     del state, init
@@ -1456,6 +1609,403 @@ def train_phase(torch, mt, g, dev, work) -> dict:
     }
 
 
+# --------------------------------------------------------------- phase 14
+def f16_phase(torch, mt, g, dev) -> dict:
+    """Phase 14; -> {kind: max abs error against the plain version}."""
+    log("[14] B4 and B5 against their plain versions on the card")
+    errs = {"f16h": 0.0, "f16": 0.0}
+
+    def unit(n):
+        x = torch.randn((n, DIM), generator=g, device=dev)
+        return x / x.norm(dim=1, keepdim=True)
+
+    n, nv = 262_144, 262_144 - 777
+    e = unit(n).to(torch.float16)
+    for b, k_sel in ((2, 40), (64, 400)):
+        q = unit(b)
+        t = mt._pool_t(k_sel, nv, 256, 4)
+        for kind in errs:
+            errs[kind] = max(errs[kind], compare_f16(
+                mt, kind, q, e, nv, 256, t,
+                f"B={b} N={n} valid={nv} k_sel={k_sel} T={t}"))
+    del e
+    # more candidates than valid rows, through the wrapper too: the -1
+    # sentinel of exhausted tile slots must not resurface through the
+    # rescore (refine 4: 4,000 candidates of 3,000 valid rows)
+    e, q = unit(4099).to(torch.float16), unit(5)
+    t = mt._pool_t(4096, 3000, 256, 4)
+    for kind in errs:
+        errs[kind] = max(errs[kind], compare_f16(
+            mt, kind, q, e, 3000, 256, t,
+            f"B=5 N=4099 valid=3000 k_sel=4096 T={t}"))
+    for refine in (4, 0):
+        gs, gi = mt.mips_topk_f16_t(q, e, 1000, valid_n=3000, refine=refine)
+        cs, ci = mt.mips_topk_f16_t(q.cpu(), e.cpu(), 1000, valid_n=3000,
+                                    refine=refine)
+        distinct = all(len(set(row)) == 1000 for row in gi.tolist())
+        err = float((gs.cpu() - cs).abs().max())
+        log(f"  mips_topk_f16_t k=1000 over 3,000 valid rows, refine "
+            f"{refine}: ids distinct and valid {distinct}, max "
+            f"{int(gi.max())}; scores vs the CPU path max abs err {err:.3g}")
+        if not distinct or int(gi.max()) >= 3000 or int(gi.min()) < 0:
+            raise AssertionError("the wrapper returned a placeholder id")
+        if err > F16_RTOL:
+            raise AssertionError(f"card and CPU searches differ by {err}")
+    # a slab of rows whose every component is an fp16 subnormal, the only
+    # valid rows, so every emitted candidate is one of them
+    e = unit(8192)
+    e[:4096] *= 2e-5
+    e = e.to(torch.float16)
+    if not bool((e[:4096].abs() < 2 ** -14).all()):
+        raise AssertionError("the slab is not subnormal")
+    q = unit(16)
+    t = mt._pool_t(400, 4096, 256, 4)
+    for kind in errs:
+        errs[kind] = max(errs[kind], compare_f16(
+            mt, kind, q, e, 4096, 256, t,
+            f"subnormal rows B=16 N=8192 valid=4096 T={t}"))
+    del e
+    torch.cuda.empty_cache()
+    return errs
+
+
+# ------------------------------------------------------------ phases 15-17
+def f16_train_phase(torch, mt, g, dev, work):
+    """Phases 15-17; -> (their numbers, the original f32 rows on the
+    host)."""
+    import numpy as np
+
+    from jsa_rag_tpu_torch.config import Options
+    from jsa_rag_tpu_torch.convert import params_to_numpy
+    from jsa_rag_tpu_torch.data import PassageStore
+    from jsa_rag_tpu_torch.index import flat
+    from jsa_rag_tpu_torch.index.flat import ShardedFlatIndex
+    from jsa_rag_tpu_torch.index.refresh import IncrementalIndexRefresher
+    from jsa_rag_tpu_torch.model_io import load_or_initialize_model
+    from jsa_rag_tpu_torch.ops.mips import mips_topk_exact
+    from jsa_rag_tpu_torch.train import __main__ as train_cli
+    from jsa_rag_tpu_torch.train import modes
+    from jsa_rag_tpu_torch.train.checkpoint import load_checkpoint
+    from jsa_rag_tpu_torch.train.optim import AdamW
+
+    log(f"[15] rag training at full width: bge-large towers, ~1B llama/GQA "
+        f"generator (bf16, LoRA), float16 index {N_INDEX} x {DIM}, "
+        f"refine_r 4 (B4)")
+    t0 = time.perf_counter()
+    store = PassageStore.synthetic(N_TEXT, seed=SEED)
+    passages = os.path.join(work, "passages.jsonl")
+    if not os.path.exists(passages):
+        write_passages(passages, store)
+    train_data = write_questions(torch, os.path.join(work, "train.jsonl"),
+                                 store, 64, SEED + 2)
+    ck = os.path.join(work, "ck")
+    index_path = os.path.join(work, "index_f16")
+    base = FLAGSHIP + [
+        "--device", dev.type, "--gold_score_mode", "rag",
+        "--index_dtype", "float16", "--refine_r", "4",
+        "--passages", passages, "--train_data", train_data,
+        "--checkpoint_dir", ck, "--warmup_steps", "2", "--log_freq", "1",
+        "--eval_freq", "1000000", "--refresh_index", "0-40000:40000"]
+    argv = base + ["--total_steps", str(TRAIN_STEPS), "--save_freq",
+                   str(TRAIN_STEPS), "--log_detail_num", "2"]
+    model, params, _ = load_or_initialize_model(
+        Options.from_args(argv + ["--name", "build16"]), store)
+    # the initial weights of every cell here: rag and concat build the same
+    # tree from one seed, vrag adds the posterior as a copy of the prior
+    init = params_to_numpy(params)
+    index = ShardedFlatIndex(N_INDEX, DIM, "float16", device=dev)
+    e32 = torch.empty((N_INDEX, DIM), dtype=torch.float32, device=dev)
+    stats = model.build_index(KeepFloats(index, e32), params)
+    log(f"  build_index over {N_TEXT} passages: "
+        f"{stats['runtime/indexing'][0]:.1f} s")
+    fill_clustered(torch, g, index, e32, N_TEXT, N_INDEX)
+    index.save(index_path, n_files=16)
+    store_bytes = index.embeddings.numel() * 2
+    del model, params, index
+    e32 = e32.cpu()  # off the card while main trains
+    torch.cuda.empty_cache()
+    log(f"  clustered rows and save: {time.perf_counter() - t0:.1f} s; "
+        f"the float16 store {store_bytes} bytes")
+
+    # where a step's device time goes: the passage embeddings (rag: the
+    # top-k; vrag: the posterior's top-k and the union through both towers;
+    # concat embeds none) and the generator CE, the backward, the optimizer
+    parts = [(modes, "_embed_rows", "passage embed"),
+             (modes, "_per_row_ce", "generator CE"),
+             (torch.autograd, "grad", "backward"),
+             (AdamW, "step", "optimizer")]
+
+    def train_cell(name, argv, n_steps, keys, mode, cell_init):
+        """One training cell through ``main``: its steps, B4's launches,
+        recall@10 of its searches, B4 against plain on its first scan, the
+        checkpoint invariants."""
+        run = timed_train_main(torch, argv, mt.scan_topt_f16h,
+                               (flat, "mips_topk_t"),
+                               parts[1:] if mode == "concat" else parts)
+        with open(os.path.join(ck, name, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        log(f"  {name} main: {run['main_s']:.1f} s, {run['final_step']} "
+            f"steps, B4 launches {run['launches']}; peak memory "
+            f"{run['peak'] / 2**30:.2f} GiB of {run['total'] / 2**30:.2f} "
+            f"GiB, allocator retries {run['retries']}")
+        if run["final_step"] != n_steps or run["launches"] < 1:
+            raise AssertionError(f"{name} did not run its steps through B4")
+        steps = step_records(run, metrics, keys, n_steps)
+        calls = run.pop("calls")
+        q = torch.cat([args[0] for args, _, _ in calls]).float()
+        got = torch.cat([out[1][:, :10] for _, _, out in calls])
+        r10 = recall_against_oracle(torch, q.cpu(), got.cpu(), e32, 10)
+        log(f"  recall@10 of {name} main's {q.shape[0]} search queries "
+            f"against exact f32 over the original rows: {r10:.4f}")
+        if r10 < RECALL_BAR:
+            raise AssertionError(f"recall@10 {r10:.4f} < {RECALL_BAR}")
+        err = compare_f16_call(mt, calls[0], "main's first scan:")
+        del calls, q, got
+        state = load_checkpoint(os.path.join(ck, name))
+        inv = check_invariants(np, cell_init, state["params"],
+                               Options.from_args(argv), mode)
+        log(f"  checkpoint step {state['step']}: {inv['frozen_identical']} "
+            f"frozen leaves bit-identical, {inv['decayed']} leaves = init "
+            f"x their group's decay (lm {inv['decay_factor']['lm']:.9f}, "
+            f"retr {inv['decay_factor']['retr']:.9f}; max rel err "
+            f"{inv['decay_max_rel_err']:.3g}), {inv['moved']} leaves moved")
+        del state
+        shutil.rmtree(os.path.join(ck, name), ignore_errors=True)
+        torch.cuda.empty_cache()
+        return {"launches": run.pop("launches"), "recall_at_10": r10,
+                "first_scan_max_abs_err": err, "steps": steps,
+                "checkpoint": inv, **{k: run[k] for k in (
+                    "main_s", "peak", "total", "retries")}}
+
+    log(f"  cut for time: --total_steps {TRAIN_STEPS} (flagship 20,000), "
+        f"--warmup_steps 2 (1,000), no eval")
+    rag = train_cell("rag-full", argv + ["--load_index_path", index_path,
+                                         "--name", "rag-full"],
+                     TRAIN_STEPS, ("loss/train_loss", "loss/generator_loss"),
+                     "rag", init)
+
+    log(f"[16] vrag (union KL) and concat at full width on the saved float16 "
+        f"index, {MODE_STEPS} steps each")
+    cells = {}
+    for name, extra, keys, cell_init in (
+            ("vrag", ["--gold_score_mode", "vrag", "--union_kl", "true",
+                      "--use_gradient_checkpoint_retriever", "true"],
+             ("loss/train_loss", "loss/generator_loss", "KL"),
+             dict(init, post_retriever=init["retriever"])),
+            ("concat", ["--gen_method", "concat"],
+             ("loss/train_loss", "loss/generator_loss"), init)):
+        log(f"  {name}: " + " ".join(extra))
+        cells[name] = train_cell(
+            f"{name}-full", base + extra + [
+                "--total_steps", str(MODE_STEPS), "--save_freq",
+                str(MODE_STEPS), "--load_index_path", index_path,
+                "--name", f"{name}-full"],
+            MODE_STEPS, keys, name, cell_init)
+        cells[name]["flags"] = extra
+    del init
+
+    # ------------------------------------------- 17 refresh and prefetch
+    n_batches = -(-N_TEXT // 256)
+    per_step = 32
+    predicted = 2 + -(-n_batches // per_step) - 1
+    log(f"[17] incremental refresh and pipelined retrieval over the {N_TEXT} "
+        f"text passages (rag, float16): --refresh_index 0-3:2 "
+        f"--incremental_refresh_batches {per_step} --pipeline_retrieval "
+        f"true; the sweep of {n_batches} batches of 256 starts at step 2 and "
+        f"should swap at step {predicted}")
+    text_passages = os.path.join(work, "passages_text.jsonl")
+    if not os.path.exists(text_passages):
+        with open(text_passages, "w") as f:
+            for i in range(N_TEXT):
+                f.write(json.dumps(store[i]) + "\n")
+    argv17 = FLAGSHIP + [
+        "--device", dev.type, "--gold_score_mode", "rag",
+        "--index_dtype", "float16", "--passages", text_passages,
+        "--train_data", train_data, "--checkpoint_dir", ck,
+        "--name", "refresh16", "--total_steps", "4", "--warmup_steps", "2",
+        "--save_freq", "1000", "--log_freq", "1", "--eval_freq", "1000000",
+        "--refresh_index", "0-3:2", "--incremental_refresh_batches",
+        str(per_step), "--pipeline_retrieval", "true"]
+    sweep = {}
+    real_start = IncrementalIndexRefresher.start
+    real_step = IncrementalIndexRefresher.step
+
+    def start(self):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        real_start(self)
+        sweep["staging_bytes"] = torch.cuda.memory_allocated() - before
+        sweep["store_bytes"] = (self.index.embeddings.numel()
+                                * self.index.embeddings.element_size())
+
+    def step(self, params):
+        sweep["held_bytes"] = max(sweep.get("held_bytes", 0),
+                                  torch.cuda.memory_allocated())
+        swapped = real_step(self, params)
+        if swapped:
+            sweep["searches_before_swap"] = len(searches)
+        return swapped
+
+    IncrementalIndexRefresher.start = start
+    IncrementalIndexRefresher.step = step
+    try:
+        with recording(train_cli, "train") as runs, \
+                recording(flat, "mips_topk_t") as searches:
+            train_cli.main(argv17)
+    finally:
+        IncrementalIndexRefresher.start = real_start
+        IncrementalIndexRefresher.step = real_step
+    (rmodel, rindex, rparams, _, ropt), _, _ = runs[0]
+    with open(os.path.join(ck, "refresh16", "metrics.jsonl")) as f:
+        rmetrics = [json.loads(line) for line in f]
+    swapped = [m["step"] for m in rmetrics if "index/refresh_swapped" in m]
+    prefetched = [m["step"] for m in rmetrics
+                  if "runtime/prefetch_retrieve" in m]
+    if swapped != [predicted]:
+        raise AssertionError(f"swap at {swapped}, predicted {predicted}")
+    rows = rindex.embeddings[:N_TEXT].float()
+    norms = rows.norm(dim=1)
+    finite = bool(torch.isfinite(rows).all())
+    norm_err = float((norms - 1).abs().max())
+    after = searches[sweep["searches_before_swap"]:]
+    q = torch.cat([args[0] for args, _, _ in after]).float()
+    got = torch.cat([out[1][:, :10] for _, _, out in after])
+    _, oracle = mips_topk_exact(q, rows, 10)
+    r10 = float(torch.tensor([len(set(a.tolist()) & set(o.tolist())) / 10
+                              for a, o in zip(got, oracle)]).mean())
+    log(f"  swapped at step {swapped} (predicted {predicted}); prefetch at "
+        f"steps {prefetched}; staging {sweep['staging_bytes']} bytes for a "
+        f"store of {sweep['store_bytes']}, {sweep['held_bytes']} bytes "
+        f"allocated at most during the sweep; {N_TEXT} stored rows finite "
+        f"{finite}, max |norm - 1| {norm_err:.3g}; recall@10 of the "
+        f"{q.shape[0]} searches after the swap against exact f32 over the "
+        f"stored rows {r10:.4f}")
+    if sweep["staging_bytes"] < sweep["store_bytes"]:
+        raise AssertionError("the staging store was not allocated")
+    if not finite or norm_err > 1e-3:
+        raise AssertionError("stored rows not finite unit rows")
+    if r10 < RECALL_BAR or q.shape[0] < 1:
+        raise AssertionError(f"recall@10 after the swap {r10:.4f}")
+    refresh = {"swap_step": swapped, "predicted_swap_step": predicted,
+               "prefetch_steps": prefetched, "row_norm_max_err": norm_err,
+               "recall_at_10_after_swap": r10, **sweep,
+               "wall_s": [{k.removeprefix("runtime/"): v
+                           for k, v in m.items()
+                           if k.startswith("runtime/")} for m in rmetrics]}
+    del runs, rmodel, rindex, rparams, searches, after, rows
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"rag": rag, **cells, "refresh": refresh}, e32
+
+
+# --------------------------------------------------------------- phase 18
+def f16_eval_phase(torch, mt, g, dev, work, e32) -> dict:
+    """Phase 18; -> B4's and B5's timings, B5's evaluate numbers."""
+    from jsa_rag_tpu_torch import evaluate as evaluate_cli
+    from jsa_rag_tpu_torch.data import PassageStore
+    from jsa_rag_tpu_torch.index import flat
+    from jsa_rag_tpu_torch.index.flat import ShardedFlatIndex
+
+    log("[18] evaluate at full width on the float16 index with --refine_r 0 "
+        "(B5): 16 questions, batches of 8, generation_max_length 32")
+    store = PassageStore.synthetic(N_TEXT, seed=SEED)
+    questions = write_questions(torch, os.path.join(work, "questions16.jsonl"),
+                                store, 16, SEED)
+    argv = ["--model_size", MODEL_SIZE, "--precision", "bf16",
+            "--max_vocab", "32000", "--seed", str(SEED), "--device", dev.type,
+            "--index_dtype", "float16", "--refine_r", "0",
+            "--n_context", "10", "--per_gpu_batch_size", "8",
+            "--generation_max_length", "32",
+            "--passages", os.path.join(work, "passages.jsonl"),
+            "--eval_data", questions,
+            "--load_index_path", os.path.join(work, "index_f16"),
+            "--checkpoint_dir", os.path.join(work, "ck"),
+            "--name", "eval-f16"]
+    t0 = time.perf_counter()
+    with recording(ShardedFlatIndex, "search") as searches, \
+            recording(flat, "mips_topk_t", 1) as scans:
+        mt.scan_topt_f16.launches = 0  # main path starts
+        results = evaluate_cli.main(argv)
+        launches = mt.scan_topt_f16.launches  # main path ends
+    metrics = results["questions16.jsonl"]
+    log(f"  evaluate main: {time.perf_counter() - t0:.1f} s, B5 launches "
+        f"{launches}, metrics " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(metrics.items())))
+    if launches < 1:
+        raise AssertionError("the evaluate path never launched B5")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite metrics {metrics}")
+    sidx = searches[0][0][0]
+    q = torch.cat([args[1] for args, _, _ in searches]).float()
+    got10 = torch.cat([out[1] for _, _, out in searches])
+    r10 = recall_against_oracle(torch, q.cpu(), got10.cpu(), e32, 10)
+    _, got100 = sidx.search(q, TOPK)
+    r100 = recall_against_oracle(torch, q.cpu(), got100.cpu(), e32, TOPK)
+    log(f"  recall against exact f32 over the original rows, {q.shape[0]} "
+        f"queries of main's searches: @10 {r10:.4f}, @100 {r100:.4f}")
+    if min(r10, r100) < RECALL_BAR:
+        raise AssertionError(f"recall {r10:.4f} / {r100:.4f} < {RECALL_BAR}")
+    err = compare_f16_call(mt, scans[0], "main's first scan:")
+    del scans, searches
+
+    log("  B4 and B5 timing on the 1.3M-row float16 store")
+    rows, nv = sidx.embeddings, sidx.n_passages
+    n_rows = rows.shape[0]
+    n_tiles = -(-n_rows // 256)
+    timing = {"f16h": {}, "f16": {}}
+    for b in (2, 64, 512):
+        qb = e32[torch.randint(0, N_INDEX, (b,), generator=torch.Generator()
+                               .manual_seed(SEED + b))].to(dev)
+        lib_ms = cuda_ms(lambda: torch.matmul(qb.half(), rows.t()), 5)
+        for kind, planes, k_sel in (("f16h", 1, 40), ("f16", 2, 10)):
+            _, t = mt.scan_geometry(n_rows, k_sel, nv)
+            scan = getattr(mt, f"scan_topt_{kind}")
+            ms = cuda_ms(lambda: scan(qb, rows, nv, 256, t), 20)
+            bound_ms, bound_by = f16_bound(b, n_rows, DIM, n_tiles, t, planes)
+            timing[kind][b] = {"ms": ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by, "library_ms": lib_ms,
+                               "T": t}
+            if b == 64:
+                plain = getattr(mt, f"scan_topt_{kind}_plain")
+                timing[kind]["plain_ms"] = cuda_ms(
+                    lambda: plain(qb, rows, nv, 256, t), 3, warmup=1)
+            log(f"  B={b} T={t}: {'B4' if planes == 1 else 'B5'} {ms:.3f} "
+                f"ms, bound {bound_ms:.3f} ms ({bound_by}), torch.matmul "
+                f"fp16 {lib_ms:.3f} ms")
+    log(f"  B=64 plain versions: B4 {timing['f16h']['plain_ms']:.3f} ms, B5 "
+        f"{timing['f16']['plain_ms']:.3f} ms")
+    search_ms = host_ms(lambda: sidx.search(q[:8], 10), 10)
+    log(f"  index.search (k=10, refine 0) per call at B=8: {search_ms:.3f} ms")
+    return {"launches": launches, "max_abs_err": err, "recall_at_10": r10,
+            "recall_at_100": r100, "metrics": metrics, "timing": timing,
+            "n_rows": n_rows, "search_ms_B8": search_ms}
+
+
+def f16_kernel(kind: str, timing: dict, n_rows: int, launches: int,
+               max_err: float, **extra) -> dict:
+    """B4's or B5's entry of the kernels line, headline at B=64."""
+    t = timing[kind]
+    return {
+        "name": f"topt_{kind}",
+        "route": "cuda",
+        "source": "jsa_rag_tpu_torch/csrc/topt_dense.cu",
+        "replaces": "jsa_rag_tpu/ops/mips_pallas2.py:"
+                    + ("446" if kind == "f16h" else "468"),
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": t[64]["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t[64]["bound_ms"],
+        "bound_by": t[64]["bound_by"],
+        "library_ms": t[64]["library_ms"],
+        "shape": {"B": 64, "N": n_rows, "d": DIM, "tile_n": 256,
+                  "T": t[64]["T"], "dtype": "float16"},
+        "at_B2": t[2],
+        "at_B512": t[512],
+        **extra,
+    }
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---------------------------------------------------------- 1 environment
@@ -1526,12 +2076,28 @@ def main() -> None:
         b2_err = int8_phase(torch, mt, g, dev)
         b2 = train_phase(torch, mt, g, dev, work)
         b2["max_abs_err"] = max(b2["max_abs_err"], b2_err)
+        shutil.rmtree(os.path.join(work, "index_hybrid"), ignore_errors=True)
+        torch.cuda.empty_cache()
+        f16_errs = f16_phase(torch, mt, g, dev)
+        cells, e32 = f16_train_phase(torch, mt, g, dev, work)
+        ev = f16_eval_phase(torch, mt, g, dev, work, e32)
+        del e32
+        launches_b4 = cells["rag"].pop("launches")
+        b4 = f16_kernel(
+            "f16h", ev["timing"], ev["n_rows"], launches_b4,
+            max(f16_errs["f16h"], cells["rag"]["first_scan_max_abs_err"],
+                *(cells[c]["first_scan_max_abs_err"]
+                  for c in ("vrag", "concat"))), cells=cells)
+        b5 = f16_kernel("f16", ev["timing"], ev["n_rows"], ev.pop("launches"),
+                        max(f16_errs["f16"], ev["max_abs_err"]),
+                        evaluate={k: v for k, v in ev.items()
+                                  if k != "timing"})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     log(f"smoke took {time.perf_counter() - t_start:.0f} s")
     log(smi)
-    log(json.dumps({"kernels": [b1, b3, b2]}))
+    log(json.dumps({"kernels": [b1, b3, b2, b4, b5]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

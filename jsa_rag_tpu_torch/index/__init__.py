@@ -1,6 +1,6 @@
 """Index construction and loading (counterpart of
-``jsa_rag_tpu/index/__init__.py``): flat int8r, int8, hybrid, bfloat16 and
-float32 in this port so far."""
+``jsa_rag_tpu/index/__init__.py``): flat float16, int8r, int8, hybrid,
+bfloat16 and float32 in this port so far."""
 
 from __future__ import annotations
 
@@ -14,7 +14,8 @@ def build_index_for(opt, n_passages: int, dim: int, device="cuda"):
     """Construct the index an options object asks for (``index_mode``,
     ``faiss_index_type``, ``index_dtype``, ``int8r_refine``, ``refine_r``
     — the JAX package's flag names). IVF and PQ modes are ROADMAP queue A
-    item 14; float16 storage waits for its kernels (``flat.NOT_PORTED``)."""
+    item 14. ``refine_gather`` has no effect: the port's store is already
+    row-major."""
     mode = opt.index_mode
     if mode == "faiss" and opt.faiss_index_type == "flat":
         mode = "flat"

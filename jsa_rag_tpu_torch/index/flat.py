@@ -1,10 +1,16 @@
-"""Device-resident flat MIPS index: residual-int8 (int8r), int8, hybrid or
-dense (bfloat16 / float32) storage.
+"""Device-resident flat MIPS index: float16, residual-int8 (int8r), int8,
+hybrid or dense (bfloat16 / float32) storage.
 
 Counterpart of ``jsa_rag_tpu/index/flat.py::ShardedFlatIndex``, kept under
 the same class name. It holds one shard on one device (several devices are
 ROADMAP queue A item 13). Storage modes:
 
+- ``float16`` (the class's default, as in the JAX package; the reference's
+  own storage, src/index.py:52): ``embeddings`` (n_padded, d)
+  ``torch.float16``, written as ``x.to(float16)`` (round to nearest, the
+  JAX package's ``f16_to_bits``), searched through ``ops.mips.mips_topk_t``
+  with ``refine_r`` (on the card: kernel B4 and the f32 rescore, or B5 for
+  ``refine_r = 0``);
 - ``int8r`` (the default of ``--index_dtype``), 2 bytes per element as in
   the JAX package, searched with ``int8r_refine`` "rows" (kernel B1),
   "rows1" or "cols" (kernel B2): ``embeddings`` plane 1, (n_padded, d) int8;
@@ -23,12 +29,14 @@ ROADMAP queue A item 13). Storage modes:
 All planes are ROW-major (N, d): the JAX package keeps them (d, N) because
 the TPU's MXU wants the contraction dim leading, while ``mma.sync`` wants
 both operands K-contiguous, which rows are; rows are also the on-disk layout.
-``float16`` storage raises ``NotImplementedError`` naming the kernels it
-waits for.
+The JAX package's ``refine_gather="rows"`` copy of a float16 index is
+therefore the store itself, and the option is gone.
 
 Rows are allocated in multiples of 2048 once the index exceeds one such
 block (8 below that) and a runtime valid count masks the tail, so a search
-never copies the index to pad it. Writes update the buffers in place.
+never copies the index to pad it. Writes update the buffers in place;
+``swap_in`` replaces them whole (the double-buffered refresh,
+``index/refresh.py``).
 """
 
 from __future__ import annotations
@@ -47,17 +55,10 @@ from ..ops.mips_topt import (hybrid_int8_from_f16, mips_topk_int8_t,
                              quantize_int8, quantize_int8_residual)
 from ._npio import np_load, np_save
 
-DENSE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DENSE = {"float16": torch.float16, "bfloat16": torch.bfloat16,
+         "float32": torch.float32}
 STORAGES = ("int8r", "int8", "hybrid", *DENSE)
-NOT_PORTED = {
-    "float16": "ROADMAP queue B items 4-5 (fp16 scan kernels)",
-}
 HYBRID_CHUNK = 16384  # rows per step of the coarse-copy derivation
-
-
-def _not_ported(what: str, name: str):
-    return NotImplementedError(f"{what} {name!r} is not ported yet: "
-                               f"{NOT_PORTED.get(name, 'unknown storage')}")
 
 
 def _search_int8(q, emb, scales, *aux, k, n_true, shard_rows, n_padded,
@@ -83,29 +84,32 @@ def _search_int8(q, emb, scales, *aux, k, n_true, shard_rows, n_padded,
         pool_n=max(1, shard_rows - max_pads), **kw)
 
 
-def _search_dense(q, emb, *, k, n_true, shard_rows, n_padded, method):
-    """One shard's search, dense branch (``flat.py:131-155``): the scan
-    masks pad rows by the runtime valid count and emits id -1 for exhausted
-    tile slots with a NEG_INF score, so with one shard the JAX body's
-    out-of-range mask and merge are identities here too."""
+def _search_dense(q, emb, *, k, n_true, shard_rows, n_padded, method,
+                  refine_r):
+    """One shard's search, dense and fp16 branch (``flat.py:131-155``): the
+    scan masks pad rows by the runtime valid count and emits id -1 for
+    exhausted tile slots with a NEG_INF score (the fp16 rescore masks ids
+    outside [0, n_true)), so with one shard the JAX body's out-of-range mask
+    and merge are identities here too."""
     n_valid = min(n_true, shard_rows)
     max_pads = min(shard_rows, n_padded - n_true)
     return mips_topk_t(q, emb, min(shard_rows, k), method=method,
                        valid_n=n_valid,
-                       pool_n=max(1, shard_rows - max_pads))
+                       pool_n=max(1, shard_rows - max_pads), refine=refine_r)
 
 
 class ShardedFlatIndex:
     """Flat MIPS index on one device."""
 
-    def __init__(self, n_passages: int, dim: int, dtype: str = "int8r", *,
+    def __init__(self, n_passages: int, dim: int, dtype: str = "float16", *,
                  device: str | torch.device = "cuda", method: str = "auto",
                  int8r_refine: str = "rows"):
         if int8r_refine not in ("rows", "rows1", "cols"):
             raise ValueError(
                 f"int8r_refine must be rows|rows1|cols, got {int8r_refine!r}")
         if dtype not in STORAGES:
-            raise _not_ported("index dtype", dtype)
+            raise ValueError(f"index dtype must be one of {STORAGES}, got "
+                             f"{dtype!r}")
         self.device = resolve_device(device)
         self.dim = dim
         self.n_passages = n_passages
@@ -140,7 +144,8 @@ class ShardedFlatIndex:
     # ------------------------------------------------------------------ build
     def set_embeddings(self, start: int, block) -> None:
         """Write a float (rows, d) block at rows [start, start + rows):
-        quantised (int8r, int8) or cast (dense, hybrid's fp16 rows)."""
+        quantised (int8r, int8) or cast (float16, dense, hybrid's fp16
+        rows)."""
         aux = ((self.scales, self.res, self.res_scales) if self.store_int8r
                else self.scales)
         self.embeddings, aux = self.write_block(self.embeddings, aux, start,
@@ -178,6 +183,18 @@ class ShardedFlatIndex:
         res_scales[0, start:start + rows] = s2[:, 0]
         return buf_emb, (scales, res, res_scales)
 
+    def swap_in(self, buf_emb, buf_aux) -> None:
+        """Make ``buf_emb``/``buf_aux`` (filled by ``write_block``) the live
+        store, dropping the old buffers and hybrid's derived copy: the next
+        search re-derives it from the new rows."""
+        self.embeddings = buf_emb
+        if self.store_int8r:
+            self.scales, self.res, self.res_scales = buf_aux
+        elif self.store_int8:
+            self.scales = buf_aux
+        self._hybrid_cache = None
+        self._writes += 1
+
     # ----------------------------------------------------------------- search
     def search(self, queries, k: int):
         """Top-k over the corpus: queries (B, d) -> (scores (B, k) f32,
@@ -194,7 +211,8 @@ class ShardedFlatIndex:
                         shard_rows=self.shard_rows, n_padded=self.n_padded)
         if self.storage in DENSE:
             return (functools.partial(_search_dense, method=self.method,
-                                      **geometry), (self.embeddings,))
+                                      refine_r=self.refine_r, **geometry),
+                    (self.embeddings,))
         fn = functools.partial(_search_int8, refine_r=self.refine_r,
                                storage=self.storage,
                                int8r_refine=self.int8r_refine, **geometry)
@@ -230,9 +248,9 @@ class ShardedFlatIndex:
         """The JAX package's format: ``n_files`` row-major npy shards per
         array and a meta json. int8r writes plane 1 (N, d), scales (N, 1),
         plane 2 (N, d) and residual scales (N, 1); int8 the codes and
-        scales; hybrid its fp16 rows as int16 bit patterns (the derived
-        int8 copy is not saved); dense writes the rows, bf16 as its uint16
-        bit pattern."""
+        scales; float16 and hybrid their fp16 rows as int16 bit patterns
+        (hybrid's derived int8 copy is not saved); bf16 and f32 write the
+        rows, bf16 as its uint16 bit pattern."""
         n = self.n_passages
         os.makedirs(path, exist_ok=True)
         arrays = {"embeddings": self.embeddings[:n]}
@@ -255,11 +273,12 @@ class ShardedFlatIndex:
             "n_passages": n,
             "dim": self.dim,
             "dtype": ("int8" if self.store_int8r else
-                      "int16" if self.store_hybrid else self.storage),
+                      "int16" if self.dtype == torch.float16 else
+                      self.storage),
             # JAX records int8r as both int8 and int8r
             "store_int8": self.store_int8r or self.store_int8,
             "store_int8r": self.store_int8r,
-            "store_f16_bits": self.store_hybrid,
+            "store_f16_bits": self.dtype == torch.float16,
             "store_hybrid": self.store_hybrid,
             "n_files": n_files,
             "kind": "flat",
@@ -293,7 +312,7 @@ class ShardedFlatIndex:
                 t = torch.from_numpy(np.ascontiguousarray(a))
                 if a.dtype == np.uint16:  # bf16 bits
                     t = t.view(torch.int16).view(torch.bfloat16)
-                elif a.dtype == np.int16 and idx.store_hybrid:  # fp16 bits
+                elif a.dtype == np.int16 and idx.dtype == torch.float16:
                     t = t.view(torch.float16)
                 return t.to(idx.device)
 
@@ -320,7 +339,8 @@ class ShardedFlatIndex:
 
     def embeddings_as_float(self) -> torch.Tensor:
         """Stored rows decoded to (n_passages, d) f32 (int8r: v1*s1 +
-        v2*s2; int8: v*s; hybrid: its fp16 rows)."""
+        v2*s2; int8: v*s; float16, hybrid, bf16, f32: the rows, converted
+        exactly)."""
         n = self.n_passages
         if self.store_int8:
             return self.embeddings[:n].to(torch.float32) * self.scales[0, :n,

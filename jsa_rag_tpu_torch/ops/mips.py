@@ -7,8 +7,8 @@ over row-major (N, d) embeddings and ``mips_topk_xla_t`` over a transposed
 chunks and carry a running (B, k) top-k, so a 1.3M x 1024 corpus never
 materialises a (B, N) score matrix. On the card the products run in full
 f32 with TF32 off — the GPU form of the TPU's HIGHEST-precision rule, which
-keeps the oracle exact. ``mips_topk_t`` dispatches a bf16/f32 flat index's
-search by the JAX package's method names. The approximate variant
+keeps the oracle exact. ``mips_topk_t`` dispatches a bf16/f32/fp16 flat
+index's search by the JAX package's method names. The approximate variant
 (``lax.approx_max_k``, a TPU hardware op) is not ported yet: ROADMAP queue A
 item 14.
 """
@@ -20,7 +20,7 @@ from typing import Literal
 import torch
 
 from ..device import exact_f32_matmul
-from .mips_topt import mips_topk_dense_t
+from .mips_topt import mips_topk_dense_t, mips_topk_f16_t
 
 Method = Literal["auto", "exact", "approx", "pallas", "pallas2"]
 
@@ -91,19 +91,31 @@ def auto_method(device_type: str, n: int) -> str:
 
 def mips_topk_t(queries: torch.Tensor, emb_rows: torch.Tensor, k: int, *,
                 method: Method = "auto", chunk: int | None = None,
-                valid_n: int | None = None, pool_n: int | None = None):
+                valid_n: int | None = None, pool_n: int | None = None,
+                refine: int = 4):
     """MIPS over a dense flat index (counterpart of ``mips_topk_t``,
-    ``mips.py:214-270``): ``emb_rows`` (N, d) bf16 or f32, row-major here
-    (the JAX package's is (d, N)). ``"pallas"``/``"pallas2"`` run the fused
-    scan (kernel B3 on a CUDA tensor, its plain version on a CPU one);
-    ``"auto"`` picks it on CUDA for N >= 16384 and the exact chunked scan
-    below that (``auto_method``); ``"exact"`` is the f32
-    oracle with the runtime valid count. -> (scores (B, k), ids (B, k))."""
-    if emb_rows.dtype in (torch.int16, torch.float16):
-        raise NotImplementedError(
-            "float16 index storage is not ported yet: ROADMAP queue B items "
-            "4-5")
+    ``mips.py:214-270``): ``emb_rows`` (N, d) bf16, f32 or fp16, row-major
+    here (the JAX package's is (d, N)). -> (scores (B, k), ids (B, k)).
+
+    bf16/f32: ``"pallas"``/``"pallas2"`` run the fused scan (kernel B3 on a
+    CUDA tensor, its plain version on a CPU one); ``"auto"`` picks it on
+    CUDA for N >= 16384 and the exact chunked scan below that
+    (``auto_method``); ``"exact"`` is the f32 oracle with the runtime valid
+    count.
+    fp16 (``mips.py:236-252``): ``"pallas"``/``"pallas2"``, and ``"auto"`` on
+    CUDA at any N, run ``mips_topk_f16_t`` with ``refine`` (kernel B4 and the
+    f32 rescore for refine > 0, kernel B5 for 0); ``"exact"``, and
+    ``"auto"`` on the CPU, the f32 scan over the stored fp16 values."""
     n = emb_rows.shape[0]
+    if emb_rows.dtype == torch.int16:
+        raise TypeError("fp16 rows are torch.float16 here, not int16 bits")
+    if emb_rows.dtype == torch.float16:
+        if method in ("pallas", "pallas2") or (
+                method == "auto" and emb_rows.device.type == "cuda"):
+            return mips_topk_f16_t(queries, emb_rows, k, valid_n=valid_n,
+                                   pool_n=pool_n, refine=refine)
+        if method == "auto":
+            method = "exact"
     if method == "auto":
         method = auto_method(emb_rows.device.type, n)
     if method in ("pallas", "pallas2"):

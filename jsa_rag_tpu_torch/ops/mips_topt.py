@@ -1,7 +1,7 @@
-"""Scan-and-select MIPS: the int8 (one- and two-plane query) and dense
-(bf16/f32) scans, the exact candidate merge and the refines.
+"""Scan-and-select MIPS: the int8 (one- and two-plane query), dense
+(bf16/f32) and fp16 scans, the exact candidate merge and the refines.
 
-Counterpart of ``jsa_rag_tpu/ops/mips_pallas2.py``, three subsets:
+Counterpart of ``jsa_rag_tpu/ops/mips_pallas2.py``, four subsets:
 
 - int8r: the ``refine > 0``, ``res_rows``, ``int8r_refine="rows"`` branch of
   ``mips_topk_pallas2_int8_t`` (:794-945) — the default search of the int8r
@@ -17,9 +17,15 @@ Counterpart of ``jsa_rag_tpu/ops/mips_pallas2.py``, three subsets:
 - dense: ``mips_topk_pallas2_t`` (:203-292), the search of every bf16/f32
   flat index, as ``mips_topk_dense_t``. The Pallas kernel ``_topt_kernel_t``
   (:176-200) becomes ``csrc/topt_dense.cu`` (kernel B3); its plain version
-  is ``scan_topt_dense_plain``.
+  is ``scan_topt_dense_plain``;
+- fp16: ``mips_topk_pallas2_f16_t`` (:500-613), the search of every float16
+  flat index, as ``mips_topk_f16_t``. Its Pallas kernels ``_topt_f16h_kernel_t``
+  (:446-465, the coarse pass of ``refine > 0``) and ``_topt_f16_kernel_t``
+  (:468-492, fp16-exact scores for ``refine = 0``) become the fp16 instances
+  of the 16-bit template in ``csrc/topt_dense.cu`` (kernels B4 and B5); their
+  plain versions are ``scan_topt_f16h_plain`` and ``scan_topt_f16_plain``.
 
-Both kernels end in the per-tile emit ``_emit_topt`` (:32-49), shared in
+Every kernel ends in the per-tile emit ``_emit_topt`` (:32-49), shared in
 ``csrc/topt_emit.cuh``. Quantisation, the merge and the refine stay plain
 PyTorch, as they stayed XLA in the JAX package.
 
@@ -232,8 +238,9 @@ KERNELS = ("topt_int8r2", "topt_dense")
 
 @functools.cache
 def _kernel_libs() -> dict:
-    """Both scan kernels, built together (one nvcc each, concurrently) at
-    first use."""
+    """Both kernel sources, built together (one nvcc each, concurrently) at
+    first use: ``topt_int8r2`` holds B1 and B2, ``topt_dense`` B3, B4 and
+    B5."""
     libs = load_libraries(KERNELS)
     # pointers and the stream as c_void_p: undeclared, ctypes would pass
     # them as 32-bit ints and cut them
@@ -246,14 +253,18 @@ def _kernel_libs() -> dict:
             (libs["topt_dense"].topt_dense_bf16_launch,
              [ptr] * 3 + [i32] * 6 + [ptr] * 3),
             (libs["topt_dense"].topt_dense_f32_launch,
-             [ptr] * 2 + [i32] * 6 + [ptr] * 3)):
+             [ptr] * 2 + [i32] * 6 + [ptr] * 3),
+            (libs["topt_dense"].topt_f16h_launch,
+             [ptr] * 3 + [i32] * 6 + [ptr] * 3),
+            (libs["topt_dense"].topt_f16_launch,
+             [ptr] * 4 + [i32] * 6 + [ptr] * 3)):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return libs
 
 
 def _check_launch(b: int, d: int, n_rows: int, tile_n: int, planes):
-    """What both kernels refuse: an emit tile they are not built for, d not
+    """What every kernel refuses: an emit tile they are not built for, d not
     a multiple of 16, planes not 16-byte aligned for cp.async, or a grid or
     row id past int32. -> n_tiles."""
     if tile_n not in KERNEL_TILES:
@@ -354,11 +365,12 @@ scan_topt_int8.launches = 0
 DENSE_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _check_dense_args(q, emb, valid_n, tile_n, t_per_tile):
+def _check_dense_args(q, emb, valid_n, tile_n, t_per_tile,
+                      dtypes=DENSE_DTYPES):
     if q.dtype != torch.float32:
         raise TypeError(f"queries must be float32, got {q.dtype}")
-    if emb.dtype not in DENSE_DTYPES:
-        raise TypeError(f"index rows must be one of {DENSE_DTYPES}, got "
+    if emb.dtype not in dtypes:
+        raise TypeError(f"index rows must be one of {dtypes}, got "
                         f"{emb.dtype}")
     if q.device != emb.device:
         raise ValueError(f"queries on {q.device}, index on {emb.device}")
@@ -461,6 +473,154 @@ def mips_topk_dense_t(
     cand_s = cand_s.permute(1, 0, 2).reshape(b, -1)
     cand_i = cand_i.permute(1, 0, 2).reshape(b, -1)
     return _merge_candidates(cand_s, cand_i, k, b)
+
+
+# -------------------------------------------------------------- fp16 scan
+F16 = (torch.float16,)
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """int32 exponents in [-126, 127] -> exactly 2^e as float32."""
+    return ((e + 127) << 23).to(torch.int32).view(torch.float32)
+
+
+def f16_query_planes(q: torch.Tensor, planes: int):
+    """The fp16 kernels' query: each f32 row scaled by the power of two s
+    that brings max|q*s| into [0.5, 1) (exact; s = 1 for a zero row), then
+    q_h = fp16(q*s) and, with two planes, q_l = fp16((q*s - q_h) * 2^11)
+    (q*s - q_h is exact in f32). -> (q_h, q_l or None, 1/s (B,) f32).
+
+    The scaled query keeps fp16's 11 bits where fp16(q) would go subnormal
+    (|q_i| < 2^-14 max|q|); elsewhere fp16(q*s)/s == fp16(q)."""
+    _, e = torch.frexp(q.abs().amax(dim=1))
+    e = e.to(torch.int32).clamp(-100, 100)
+    qs = q * _pow2(-e)[:, None]
+    qh = qs.to(torch.float16)
+    ql = None
+    if planes == 2:
+        ql = ((qs - qh.to(torch.float32)) * 2.0 ** 11).to(torch.float16)
+    return qh, ql, _pow2(e)
+
+
+def scan_topt_f16h_plain(q, emb, valid_n: int, tile_n: int,
+                         t_per_tile: int):
+    """Plain PyTorch version of kernel B4: the f32 product of q_h (the
+    scaled fp16 query of ``f16_query_planes``) with the stored fp16 rows
+    (TF32 off on the card), times 1/s; the valid-count mask and the
+    per-tile top-T of ``_tile_topt_plain``. Equal to
+    ``q.half().float() @ rows.float().T`` wherever q is in fp16's normal
+    range."""
+    _check_dense_args(q, emb, valid_n, tile_n, t_per_tile, F16)
+    if q.device.type == "cuda":
+        exact_f32_matmul()
+    qh, _, inv_s = f16_query_planes(q, 1)
+    qh, inv_s = qh.to(torch.float32), inv_s[:, None]
+
+    def score_rows(lo, hi):
+        return (qh @ emb[lo:hi].to(torch.float32).T) * inv_s
+
+    return _tile_topt_plain(score_rows, q.shape[0], emb.shape[0], valid_n,
+                            tile_n, t_per_tile, emb.device)
+
+
+def scan_topt_f16_plain(q, emb, valid_n: int, tile_n: int,
+                        t_per_tile: int):
+    """Plain PyTorch version of kernel B5: the f32 product of the f32
+    query with the stored fp16 values (TF32 off on the card), the mask and
+    the per-tile top-T."""
+    _check_dense_args(q, emb, valid_n, tile_n, t_per_tile, F16)
+    if q.device.type == "cuda":
+        exact_f32_matmul()
+
+    def score_rows(lo, hi):
+        return q @ emb[lo:hi].to(torch.float32).T
+
+    return _tile_topt_plain(score_rows, q.shape[0], emb.shape[0], valid_n,
+                            tile_n, t_per_tile, emb.device)
+
+
+def _scan_f16(entry: str, planes: int, q, emb, valid_n, tile_n, t_per_tile):
+    """Launch one fp16 instance of ``csrc/topt_dense.cu`` on CUDA tensors."""
+    if emb.device.type != "cuda":
+        raise ValueError(f"unsupported device {emb.device}")
+    _check_dense_args(q, emb, valid_n, tile_n, t_per_tile, F16)
+    b, d = q.shape
+    n_rows = emb.shape[0]
+    qh, ql, inv_s = f16_query_planes(q, planes)
+    qplanes = (qh,) if ql is None else (qh, ql)
+    n_tiles = _check_launch(b, d, n_rows, tile_n, (*qplanes, emb))
+    return _launch(entry, getattr(_kernel_libs()["topt_dense"],
+                                  f"{entry}_launch"),
+                   (*(t.data_ptr() for t in qplanes), inv_s.data_ptr(),
+                    emb.data_ptr(), b, d, n_rows, int(valid_n), tile_n,
+                    t_per_tile), b, n_tiles, t_per_tile, emb.device)
+
+
+def scan_topt_f16h(q, emb, valid_n: int, tile_n: int, t_per_tile: int):
+    """Coarse fp16 scan + per-tile top-T emit -> (scores, ids), each
+    (ceil(N / tile_n), B, T): q (B, d) f32, emb (N, d) ``torch.float16``
+    rows; columns at or past ``valid_n`` score NEG_INF. The query goes in
+    as one fp16 plane (``f16_query_planes``). CPU tensors take the plain
+    version; CUDA tensors launch kernel B4 (counted in
+    ``scan_topt_f16h.launches``) or raise — there is no fallback."""
+    if emb.device.type == "cpu":
+        return scan_topt_f16h_plain(q, emb, valid_n, tile_n, t_per_tile)
+    out = _scan_f16("topt_f16h", 1, q, emb, valid_n, tile_n, t_per_tile)
+    scan_topt_f16h.launches += 1
+    return out
+
+
+scan_topt_f16h.launches = 0
+
+
+def scan_topt_f16(q, emb, valid_n: int, tile_n: int, t_per_tile: int):
+    """fp16-exact scan + per-tile top-T emit -> (scores, ids), as
+    ``scan_topt_f16h`` but with the query as two fp16 planes, which keeps
+    it to ~22 bits. CPU tensors take the plain version; CUDA tensors launch
+    kernel B5 (counted in ``scan_topt_f16.launches``) or raise."""
+    if emb.device.type == "cpu":
+        return scan_topt_f16_plain(q, emb, valid_n, tile_n, t_per_tile)
+    out = _scan_f16("topt_f16", 2, q, emb, valid_n, tile_n, t_per_tile)
+    scan_topt_f16.launches += 1
+    return out
+
+
+scan_topt_f16.launches = 0
+
+
+def mips_topk_f16_t(
+    queries: torch.Tensor,   # (B, d)
+    emb_rows: torch.Tensor,  # (N, d) torch.float16
+    k: int,
+    *,
+    valid_n: int | None = None,
+    pool_n: int | None = None,
+    tile_n: int = 256,
+    t_per_tile: int = 4,
+    refine: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused MIPS over an fp16 index (counterpart of
+    ``mips_topk_pallas2_f16_t``) -> (scores (B, k) f32, ids (B, k) int32).
+
+    ``refine=r>0``: the coarse scan (kernel B4) and the exact merge to the
+    top-(r*k), rescored in f32 from the rows by ``_f16_refine``.
+    ``refine=0``: fp16-exact scores (kernel B5), merged to the top-k.
+    ``valid_n``/``pool_n``/``tile_n`` as in ``mips_topk_dense_t``."""
+    b = queries.shape[0]
+    n = emb_rows.shape[0]
+    k = min(k, n)
+    k_sel = min(refine * k, n) if refine else k
+    valid_n = n if valid_n is None else int(valid_n)
+    tile_n, t = scan_geometry(n, k_sel, pool_n, tile_n, t_per_tile)
+    q = queries.to(torch.float32).contiguous()
+    scan = scan_topt_f16h if refine else scan_topt_f16
+    cand_s, cand_i = scan(q, emb_rows, valid_n, tile_n, t)
+    cand_s = cand_s.permute(1, 0, 2).reshape(b, -1)
+    cand_i = cand_i.permute(1, 0, 2).reshape(b, -1)
+    if not refine:
+        return _merge_candidates(cand_s, cand_i, k, b)
+    _, ids = _merge_candidates(cand_s, cand_i, k_sel, b)
+    return _f16_refine(q, emb_rows, ids, k, valid_n)
 
 
 # ------------------------------------------------------- merge and refine

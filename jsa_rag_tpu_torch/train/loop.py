@@ -9,9 +9,15 @@ drained to the host every 32 steps, at a log boundary, or when a
 the host builds the next batch while the device runs the step. SIGTERM and
 SIGUSR1 end the run after the current step with a checkpoint.
 
-Not ported yet: ``--incremental_refresh_batches`` (the double-buffered
-refresh) and ``--pipeline_retrieval`` (ROADMAP queue A item 11),
-``--profile_steps`` (item 15), ``--save_optimizer`` (item 9).
+``--incremental_refresh_batches N`` replaces each scheduled rebuild after
+step 1 by a double-buffered sweep (``index/refresh.py``), N embed batches a
+step, swapped in when it completes. ``--pipeline_retrieval`` retrieves the
+next batch's candidates with the pre-step params before the step; a
+prefetch made against rows that a rebuild or swap has since replaced is
+dropped and retrieved again (``index_version``).
+
+Not ported yet: ``--profile_steps`` (ROADMAP queue A item 15),
+``--save_optimizer`` (item 9).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import signal
 import time
 
 from ..config import Options
+from ..index.refresh import IncrementalIndexRefresher
 from ..tasks import get_task
 from ..utils.schedulers import IndexRefreshScheduler
 from ..utils.stats import WeightedAvgStats
@@ -41,9 +48,7 @@ def train_mode_of(opt: Options) -> str:
 
 
 def _check_ported(opt: Options) -> None:
-    for flag, item in (("incremental_refresh_batches", 11),
-                       ("pipeline_retrieval", 11), ("profile_steps", 15),
-                       ("save_optimizer", 9)):
+    for flag, item in (("profile_steps", 15), ("save_optimizer", 9)):
         if getattr(opt, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported yet: ROADMAP queue A item {item}")
@@ -74,6 +79,10 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
         refresh = IndexRefreshScheduler(opt.refresh_index,
                                         opt.freeze_retriever_steps,
                                         opt.train_retriever)
+        refresher = None
+        if opt.incremental_refresh_batches > 0:
+            refresher = IncrementalIndexRefresher(
+                model, index, batches_per_step=opt.incremental_refresh_batches)
         train_step = make_train_step(model, mode, tx)
         batch_rows = host_batch_rows(opt)
 
@@ -90,6 +99,9 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
 
         rng = StepRng.from_seed(opt.seed, model.device)
         epoch = 0
+        # bumped on every rebuild and swap: a prefetched retrieval is valid
+        # only against the rows it searched
+        index_version = 0
         pending: list = []  # (iter_stats, loss, aux, weight), on the device
         last_loss = float("nan")
 
@@ -118,6 +130,7 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                 shuffle_seed=opt.seed * 1_000_003 + epoch * 9_973)
             batches_it = iter(batches)
             batch = next(batches_it, None)
+            prefetched = None  # (retrieval ctx of `batch`, index_version)
             while batch is not None:
                 iter_stats: dict = {}
                 step += 1
@@ -127,21 +140,49 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                     if not (step == first_step
                             and opt.load_index_path is not None):
                         t0 = time.time()
-                        model.build_index(index, params, iter_stats)
+                        if refresher is not None and step > 1:
+                            # the sweep runs inside the following steps
+                            if not refresher.active:
+                                refresher.start()
+                        else:
+                            model.build_index(index, params, iter_stats)
+                            index_version += 1
                         iter_stats["runtime/indexing"] = (time.time() - t0,
                                                           1)
+                if refresher is not None and refresher.active:
+                    t0 = time.time()
+                    if refresher.step(params):
+                        index_version += 1
+                        iter_stats["index/refresh_swapped"] = (1.0, 1)
+                    iter_stats["runtime/incremental_refresh"] = (
+                        time.time() - t0, 1)
                 queries, targets = batch["query"], batch["target"]
                 filt = getattr(task, "filter", None)
                 filt = filt if callable(filt) else None
+                retrieval = (prefetched[0] if prefetched is not None
+                             and prefetched[1] == index_version else None)
                 t0 = time.time()
                 train_batch = model.build_batch(
                     mode, index, params, queries, targets, iter_stats,
                     file_passages=batch.get("passages"),
                     batch_metadata=batch.get("metadata"),
-                    filtering_fun=filt)
+                    filtering_fun=filt, retrieval=retrieval)
                 iter_stats["runtime/retrieve+tokenize"] = (time.time() - t0,
                                                            1)
                 next_batch = next(batches_it, None)
+                prefetched = None
+                if (opt.pipeline_retrieval and next_batch is not None
+                        and step < opt.total_steps):
+                    # the next batch's candidates from the pre-step params
+                    t0 = time.time()
+                    prefetched = (model.retrieval_ctx(
+                        mode, index, params, next_batch["query"],
+                        next_batch["target"], iter_stats,
+                        file_passages=next_batch.get("passages"),
+                        batch_metadata=next_batch.get("metadata"),
+                        filtering_fun=filt), index_version)
+                    iter_stats["runtime/prefetch_retrieve"] = (
+                        time.time() - t0, 1)
 
                 t0 = time.time()
                 loss, aux = train_step(params, train_batch, rng)

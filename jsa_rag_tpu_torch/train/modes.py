@@ -1,5 +1,5 @@
-"""The training losses: jsa, with its MIS chain (counterpart of
-``jsa_rag_tpu/train/modes.py``).
+"""The training losses: concat, rag, vrag and jsa with its MIS chain
+(counterpart of ``jsa_rag_tpu/train/modes.py``).
 
 Each mode is a function ``loss(fns, params, batch, rng) -> (scalar, aux)``
 over token tensors; retrieval, the union and tokenisation happen host-side
@@ -14,8 +14,6 @@ distribution (``modes.py:1-18``).
 generator on the model's device for the MIS draws. ``mis_chain`` takes the
 proposals and uniforms as inputs; ``draw_mis`` draws them, so a test can
 replay another run's draws (torch's Philox and JAX's threefry differ).
-
-rag, vrag and concat are ROADMAP queue A item 7.
 """
 
 from __future__ import annotations
@@ -29,7 +27,6 @@ from ..models.lora import LoRAConfig, gen_params
 from ..models.retriever import DualEncoderRetriever
 
 NEG_INF = -1e30
-A7 = "is not ported yet: ROADMAP queue A item 7"
 
 
 @dataclasses.dataclass
@@ -47,17 +44,20 @@ class StepRng:
 
 @dataclasses.dataclass(frozen=True)
 class ApplyFns:
-    """Static configuration threaded into the losses (``modes.py:36-88``;
-    the rag/vrag fields come with those losses)."""
+    """Static configuration threaded into the losses (``modes.py:36-88``)."""
     gen_cfg: LMConfig
     lora_cfg: LoRAConfig | None = None
     temperature_gold: float = 1.0
+    temperature_score: float = 1.0
     temperature_jsa: float = 1.0
     temperature_lm: float = 1.0
     mis_step: int = 50
     mis_topk: int = 0
     n_context: int = 10
     use_all_mis: bool = True
+    standard_mc: bool = False
+    union_kl: bool = True
+    kl_beta: float = 1.0
     simplify_jsa: bool = False
     decouple: bool = False
     contrastive: bool = False
@@ -119,16 +119,104 @@ def _entropy(p):
     return torch.mean(-torch.sum(p * _safe_log(p), dim=-1))
 
 
-def concat_loss(fns, params, batch, rng=None):
-    raise NotImplementedError(f"the concat loss {A7}")
+def concat_loss(fns: ApplyFns, params, batch, rng=None):
+    """Generator-only fine-tuning on the retrieved passages
+    (``modes.py:125-132``; reference: src/rag.py:1286-1366). No retriever
+    gradient. batch: gen_ids/gen_labels/gen_mask."""
+    per_seq = _per_row_ce(fns, params, batch["gen_ids"], batch["gen_labels"],
+                          batch["gen_mask"], rng=_dropout_rng(fns, rng))
+    loss = torch.mean(per_seq)
+    return loss, {"loss/generator_loss": loss.detach()}
 
 
-def rag_loss(fns, params, batch, rng=None):
-    raise NotImplementedError(f"the rag loss {A7}")
+def rag_loss(fns: ApplyFns, params, batch, rng=None):
+    """RAG-sequence marginal likelihood (``modes.py:136-158``; reference:
+    src/rag.py:1367-1567): p(y|x) = sum_z softmax(score(x, z)) exp(-CE_z);
+    the retriever learns through the marginal.
+
+    batch: q_ids/q_mask (B, L); passage_ids/passage_mask (B, K, L);
+    gen_ids/gen_labels/gen_mask (B*K, L'), row b*K+k = (query b, passage
+    k)."""
+    prior = params["retriever"]
+    drop = _dropout_rng(fns, rng)
+    q_emb = prior.embed_queries(batch["q_ids"], batch["q_mask"], rng=drop)
+    p_emb = _embed_rows(prior, batch["passage_ids"], batch["passage_mask"],
+                        is_passages=True, rng=drop)
+    scores = _doc_scores(q_emb, p_emb)  # (B, K)
+    b, k, _ = batch["passage_ids"].shape
+    ce = _per_row_ce(fns, params, batch["gen_ids"], batch["gen_labels"],
+                     batch["gen_mask"], rng=drop).reshape(b, k)
+    p_z = torch.softmax(scores, dim=-1)
+    p_y = torch.sum(p_z * torch.exp(-ce), dim=-1) + fns.eps
+    loss = -torch.mean(torch.log(p_y))
+    return loss, {"loss/generator_loss": loss.detach(),
+                  "train/prior_entropy": _entropy(p_z.detach())}
 
 
-def vrag_loss(fns, params, batch, rng=None):
-    raise NotImplementedError(f"the vrag loss {A7}")
+def vrag_loss(fns: ApplyFns, params, batch, rng=None):
+    """Variational RAG (``modes.py:162-231``; reference:
+    src/rag.py:1568-1788): generator CE on the posterior's top-k weighted by
+    the posterior (mean CE under ``standard_mc``), plus kl_beta x
+    KL(posterior || prior) over the prior/posterior union (``union_kl``,
+    each side scoring the union with its own towers) or over the posterior's
+    top-k. The CE weights use the posterior tempered by temperature_score;
+    the KL distributions are untempered, as in the reference.
+
+    batch: q_ids/q_mask, post_q_ids/post_q_mask (B, L); post_passage_ids/
+    post_passage_mask (B, K, L); gen_* (B*K, L'); optional post_valid (B, K)
+    (use_file pads); with union_kl union_passage_ids/union_passage_mask
+    (B, U, L) and union_valid (B, U)."""
+    params = fns.expand(params)
+    prior, post = params["retriever"], params["post_retriever"]
+    drop = _dropout_rng(fns, rng)
+    prior_q = prior.embed_queries(batch["q_ids"], batch["q_mask"], rng=drop)
+    post_q = post.embed_queries(batch["post_q_ids"], batch["post_q_mask"],
+                                rng=drop)
+    post_p = _embed_rows(post, batch["post_passage_ids"],
+                         batch["post_passage_mask"], is_passages=True,
+                         rng=drop)
+    post_scores = _doc_scores(post_q, post_p)  # (B, K)
+    if "post_valid" in batch:
+        # use_file pads short supplied lists with duplicates: no mass
+        post_scores = torch.where(batch["post_valid"], post_scores, NEG_INF)
+    posterior_dist = torch.softmax(post_scores / fns.temperature_score,
+                                   dim=-1) + fns.eps
+
+    b, k, _ = batch["post_passage_ids"].shape
+    ce = _per_row_ce(fns, params, batch["gen_ids"], batch["gen_labels"],
+                     batch["gen_mask"], rng=drop).reshape(b, k)
+    if fns.standard_mc:
+        loss = torch.mean(torch.mean(ce, dim=-1))
+    else:
+        loss = torch.mean(torch.sum(posterior_dist * ce, dim=-1))
+
+    if fns.union_kl:
+        u_ids, u_mask = batch["union_passage_ids"], batch["union_passage_mask"]
+        valid = batch["union_valid"]  # (B, U) bool
+        prior_u = _embed_rows(prior, u_ids, u_mask, is_passages=True,
+                              rng=drop)
+        post_u = _embed_rows(post, u_ids, u_mask, is_passages=True, rng=drop)
+        prior_logits = torch.where(valid, _doc_scores(prior_q, prior_u),
+                                   NEG_INF)
+        post_logits = torch.where(valid, _doc_scores(post_q, post_u),
+                                  NEG_INF)
+        log_prior = torch.log_softmax(prior_logits, dim=-1)
+        post_dist = torch.softmax(post_logits, dim=-1)
+        kl = torch.mean(torch.sum(torch.where(
+            valid, post_dist * (_safe_log(post_dist) - log_prior), 0.0),
+            dim=-1))
+    else:
+        # the prior's scores on the posterior's top-k (post-tower passage
+        # embeddings, src/rag.py:1765-1782); use_file pads masked
+        prior_scores = _doc_scores(prior_q, post_p)
+        if "post_valid" in batch:
+            prior_scores = torch.where(batch["post_valid"], prior_scores,
+                                       NEG_INF)
+        log_prior = torch.log_softmax(prior_scores, dim=-1)
+        kl = torch.mean(torch.sum(
+            posterior_dist * (_safe_log(posterior_dist) - log_prior), dim=-1))
+    total = loss + fns.kl_beta * kl
+    return total, {"loss/generator_loss": loss.detach(), "KL": kl.detach()}
 
 
 def jsa_loss(fns: ApplyFns, params, batch, rng: StepRng | None):

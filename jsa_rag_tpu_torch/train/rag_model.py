@@ -10,9 +10,10 @@ the jsa mode, ``params["post_retriever"]``) is the ``DualEncoderRetriever``
 module whose weights a call uses, ``params["generator"]``/``params["lora"]``
 the generator's tensors.
 
-Training covers the jsa mode (``retrieve_pair``, ``build_union``,
-``retrieval_ctx``/``build_batch``, ``loss_and_grad_fn``); the rag, vrag and
-concat batches are ROADMAP queue A item 7, ``retrieve_with_rerank`` item 11.
+Training covers every mode: ``retrieval_ctx``/``build_batch`` search with
+``retrieve`` (one tower) for rag and concat and with ``retrieve_pair`` plus
+``build_union`` for vrag and jsa; ``loss_and_grad_fn`` differentiates the
+mode's loss. ``retrieve_with_rerank`` is ROADMAP queue A item 11.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from ..models.lm import (LMConfig, greedy_generate, lm_loss,
                          lm_sequence_logprob)
 from ..models.lora import LoRAConfig
 from ..models.retriever import DualEncoderRetriever
-from .modes import A7, MODE_LOSSES, ApplyFns
+from .modes import MODE_LOSSES, ApplyFns
 
 BERT_MAX_SEQ_LENGTH = 512  # reference: src/rag.py:40
 RERANK = ("retrieve_with_rerank is not ported yet: ROADMAP queue A item "
@@ -70,12 +71,16 @@ class RAGModel:
             gen_cfg=gen_cfg,
             lora_cfg=lora_cfg,
             temperature_gold=opt.temperature_gold,
+            temperature_score=opt.temperature_score,
             temperature_jsa=opt.temperature_jsa,
             temperature_lm=opt.temperature_lm,
             mis_step=opt.mis_step,
             mis_topk=opt.mis_topk,
             n_context=opt.n_context,
             use_all_mis=opt.use_all_mis,
+            standard_mc=opt.standard_mc,
+            union_kl=opt.union_kl,
+            kl_beta=opt.kl_beta,
             simplify_jsa=opt.simplify_JSA,
             decouple=opt.decouple_encoder,
             contrastive=opt.contrastive_learning,
@@ -291,10 +296,11 @@ class RAGModel:
     def retrieval_ctx(self, mode: str, index, params, queries, targets,
                       iter_stats: dict | None = None, file_passages=None,
                       batch_metadata=None, filtering_fun=None) -> dict:
-        """The retrieval phase of ``build_batch`` (``rag_model.py:396-467``),
-        jsa mode: both searches, the union and its passages."""
-        if mode != "jsa":
-            raise NotImplementedError(f"the {mode} training batch {A7}")
+        """The retrieval phase of ``build_batch`` (``rag_model.py:396-467``):
+        everything that touches the index, none of the tokenisation, so the
+        loop can prefetch the next batch's (``--pipeline_retrieval``). rag
+        and concat: one search with the prior's query tower; vrag and jsa:
+        both searches, the union and its passages."""
         topk = self.opt.n_context
         if self.opt.closed_book and file_passages is None:
             file_passages = [[] for _ in queries]
@@ -305,9 +311,18 @@ class RAGModel:
         from ..data.prompts import remove_speakers
 
         queries_r = [remove_speakers(q) for q in queries]
+        retr_kw = dict(iter_stats=iter_stats, batch_metadata=batch_metadata,
+                       filtering_fun=filtering_fun)
         ctx: dict = {"use_file": use_file,
                      "last_info": {"query": queries[0],
                                    "response": targets[0]}}
+        if mode in ("concat", "rag"):
+            if use_file:
+                ctx["passages"] = self._supplied_passages(file_passages, topk)
+            else:
+                _, _, ctx["passages"] = self.retrieve(
+                    index, params, queries_r, topk, **retr_kw)
+            return ctx
         post_queries = [f"{q} [SEP] {t}" for q, t in zip(queries_r, targets)]
         if use_file:
             # the supplied lists capped at retriever_n_context; no search
@@ -315,9 +330,6 @@ class RAGModel:
             post_passages = [p[:topk] for p in u_passages]
         elif filtering_fun is not None:
             # filtering is host-side: two calls
-            retr_kw = dict(iter_stats=iter_stats,
-                           batch_metadata=batch_metadata,
-                           filtering_fun=filtering_fun)
             post_ids, _, post_passages = self.retrieve(
                 index, params, post_queries, topk, posterior=True, **retr_kw)
             prior_ids, _, _ = self.retrieve(index, params, queries_r, topk,
@@ -344,22 +356,52 @@ class RAGModel:
                     iter_stats: dict | None = None, file_passages=None,
                     batch_metadata=None, filtering_fun=None,
                     retrieval: dict | None = None) -> dict:
-        """Retrieve and tokenise everything the jsa loss needs
+        """Retrieve and tokenise everything the mode's loss needs
         (``rag_model.py:469-575``) -> dict of tensors on the model's
-        device."""
-        if mode != "jsa":
-            raise NotImplementedError(f"the {mode} training batch {A7}")
+        device. ``retrieval``: a prefetched ``retrieval_ctx`` to consume
+        instead of searching here."""
+        if mode not in MODE_LOSSES:
+            raise ValueError(f"unknown mode {mode!r}")
         if retrieval is None:
             retrieval = self.retrieval_ctx(
                 mode, index, params, queries, targets,
                 iter_stats=iter_stats, file_passages=file_passages,
                 batch_metadata=batch_metadata, filtering_fun=filtering_fun)
         self.last_info = retrieval["last_info"]
+        t = self._tensor
+        if mode == "concat":
+            g = self._generator_rows(queries, retrieval["passages"], targets)
+            return {"gen_ids": g[0], "gen_labels": g[1], "gen_mask": g[2]}
+        q_ids, q_mask = self.retriever_tokenize(queries)
+        if mode == "rag":
+            passages = retrieval["passages"]
+            p_ids, p_mask = self._tokenize_passage_matrix(passages)
+            g = self._generator_rows(queries, passages, targets)
+            return {"q_ids": t(q_ids), "q_mask": t(q_mask),
+                    "passage_ids": t(p_ids), "passage_mask": t(p_mask),
+                    "gen_ids": g[0], "gen_labels": g[1], "gen_mask": g[2]}
         u_passages = retrieval["u_passages"]
         post_passages = retrieval["post_passages"]
         valid = retrieval["valid"]
-        q_ids, q_mask = self.retriever_tokenize(queries)
         pq_ids, pq_mask = self.retriever_tokenize(retrieval["post_queries"])
+        if mode == "vrag":
+            pp_ids, pp_mask = self._tokenize_passage_matrix(post_passages)
+            g = self._generator_rows(queries, post_passages, targets)
+            batch = {"q_ids": t(q_ids), "q_mask": t(q_mask),
+                     "post_q_ids": t(pq_ids), "post_q_mask": t(pq_mask),
+                     "post_passage_ids": t(pp_ids),
+                     "post_passage_mask": t(pp_mask),
+                     "gen_ids": g[0], "gen_labels": g[1], "gen_mask": g[2]}
+            if retrieval["use_file"]:
+                # supplied lists may be padded with duplicates: masked out
+                # of the posterior softmax
+                batch["post_valid"] = t(valid[:, :len(post_passages[0])])
+            if self.opt.union_kl:
+                u_ids, u_mask = self._tokenize_passage_matrix(u_passages)
+                batch.update(union_passage_ids=t(u_ids),
+                             union_passage_mask=t(u_mask),
+                             union_valid=t(valid))
+            return batch
         if not self.opt.unil_postandprior:
             # candidate set = posterior top-k only (src/rag.py:1873-1896);
             # supplied rows keep their pad mask
@@ -370,7 +412,6 @@ class RAGModel:
                 valid = np.ones((len(queries), len(post_passages[0])), bool)
         u_ids, u_mask = self._tokenize_passage_matrix(u_passages)
         g = self._generator_rows(queries, u_passages, targets)
-        t = self._tensor
         batch = {
             "q_ids": t(q_ids), "q_mask": t(q_mask),
             "post_q_ids": t(pq_ids), "post_q_mask": t(pq_mask),

@@ -15,7 +15,13 @@ than cuBLAS's f32 product; for unit-norm rows and queries the scores agree
 to 1e-4 absolute at bf16 and 1e-5 at f32. Ids are equal except among
 candidates whose scores lie within that tolerance of each other: where the
 ids differ, the kernel's row scores within twice the tolerance of the plain
-version's row."""
+version's row.
+B4 and B5 (fp16 rows): B4's plain version multiplies the same fp16 query
+plane by the rows in f32, so only the order of the f32 sums differs; B5
+scores the f32 query split into two fp16 planes (<= 2^-22 * sum|q_i x_i|
+left) against the plain version's f32 product. Both agree to 1e-5 of
+|q|·|x| (the effective query's norm times the row's), the bound for unit
+rows at d = 1024, and ids as for B3."""
 
 import numpy as np
 import pytest
@@ -280,3 +286,119 @@ def test_dense_search_on_card_matches_cpu(cuda, dtype):
                                atol=1e-4)
     assert (gi[:, 0].cpu() == torch.arange(b)).all()
     assert int(gi.max()) < 4900
+
+
+F16_RTOL = 1e-5
+
+
+def _f16_case(g, b, n, d, dev, subnormal_rows=0):
+    emb = _unit(g, (n, d), dev)
+    emb[:subnormal_rows] *= 2e-5  # every component an fp16 subnormal
+    return emb.to(torch.float16), _unit(g, (b, d), dev)
+
+
+def _assert_f16_close(kind, q, emb, ks, ki, ps, pi):
+    """Scores within F16_RTOL·|q|·|x| of the plain version's, the same
+    exhausted slots; where ids differ, the kernel's row scores (in f64 on
+    the stored values, with the query the kernel reads) within twice that
+    of the plain version's pick."""
+    if kind == "f16h":
+        qh, _, inv_s = tp2.f16_query_planes(q, 1)
+        q = qh.float() * inv_s[:, None]
+    live = pi >= 0
+    assert torch.equal(ki >= 0, live)
+    assert torch.equal(ks[~live], ps[~live])
+    xn = torch.linalg.vector_norm(emb, dim=1, dtype=torch.float32)
+    tol = F16_RTOL * q.norm(dim=1)[None, :, None] * xn[pi.clamp(min=0).long()]
+    err = torch.where(live, (ks - ps).abs(), 0.0)
+    assert bool((err <= tol).all()), float((err / tol.clamp_min(1e-30)).max())
+    differ = ki != pi
+    where = differ.nonzero()
+    if where.shape[0]:
+        true = (q.double()[where[:, 1]] * emb[ki[differ].long()].double()
+                ).sum(-1)
+        assert bool(((true - ps[differ].double()).abs()
+                     <= 2 * tol[differ]).all())
+
+
+def _run_f16(kind, q, emb, nv, tile, t):
+    scan = getattr(tp2, f"scan_topt_{kind}")
+    plain = getattr(tp2, f"scan_topt_{kind}_plain")
+    before = scan.launches
+    ks, ki = scan(q, emb, nv, tile, t)
+    ps, pi = plain(q, emb, nv, tile, t)
+    torch.cuda.synchronize()
+    assert scan.launches == before + 1
+    assert ks.shape == (-(-emb.shape[0] // tile), q.shape[0], t)
+    assert ki.dtype == torch.int32 and int(ki.max()) < nv
+    _assert_f16_close(kind, q, emb, ks, ki, ps, pi)
+    return ks, ki
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f16h", "f16"])
+@pytest.mark.parametrize("b,n,nv,d,k_sel", [
+    (2, 8192, 7415, 1024, 40),       # the vrag step's prior + posterior
+    (64, 8192, 8000, 1024, 400),
+    (5, 4099, 3000, 1024, 4096),     # more candidates than valid rows
+    (33, 777, 700, 80, 50),          # d not a multiple of the 64-elem stage
+    (3, 100, 90, 16, 7),             # N <= 128: the tile clamps to 128
+])
+def test_f16_kernels_match_plain(cuda, kind, b, n, nv, d, k_sel):
+    """Kernels B4 (``f16h``) and B5 (``f16``) against their plain
+    versions."""
+    g = torch.Generator(device=cuda).manual_seed(b + n + d + len(kind))
+    emb, q = _f16_case(g, b, n, d, cuda)
+    tile = min(256, tp2._round_up(n, 128))
+    _run_f16(kind, q, emb, nv, tile, tp2._pool_t(k_sel, nv, tile, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f16h", "f16"])
+def test_f16_kernel_grid_past_65535_index_tiles(cuda, kind):
+    """65,538 index tiles of 128 fp16 rows on the one-dimensional grid,
+    with two query tiles (d = 16 keeps the 8.4M rows at 268 MB)."""
+    tile, d, b = 128, 16, 40
+    n = 65_537 * tile + 5
+    nv = n - 3
+    g = torch.Generator(device=cuda).manual_seed(19)
+    emb, q = _f16_case(g, b, n, d, cuda)
+    _, ki = _run_f16(kind, q, emb, nv, tile, tp2._pool_t(400, nv, tile, 4))
+    tail = ki[65_535:]
+    assert int(tail[tail >= 0].min()) >= 65_535 * tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f16h", "f16"])
+def test_f16_kernels_take_subnormal_rows(cuda, kind):
+    """Rows whose every component is an fp16 subnormal score on the tensor
+    cores as in the plain version (the JAX decode flushed them to zero)."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    emb, q = _f16_case(g, 16, 4096, 1024, cuda, subnormal_rows=2048)
+    assert bool((emb[:2048].abs() < 2 ** -14).all())
+    ks, ki = _run_f16(kind, q, emb, 2048, 256, 8)
+    assert bool((ks[ki >= 0] != 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refine", [0, 4])
+def test_f16_search_on_card_matches_cpu(cuda, refine):
+    """``mips_topk_f16_t`` on the card returns the CPU path's (plain scans)
+    top-k, gold top-1 included; with k above the valid rows every id is
+    distinct (the -1 sentinel never resurfaces through the rescore)."""
+    g = torch.Generator().manual_seed(5 + refine)
+    n, d, b, k = 5000, 256, 9, 50
+    e = torch.randn((n, d), generator=g)
+    e = (e / e.norm(dim=1, keepdim=True)).to(torch.float16)
+    q = e[:b].float() + 0.01 * torch.randn((b, d), generator=g)
+    cs, ci = tp2.mips_topk_f16_t(q, e, k, valid_n=4900, refine=refine)
+    gs, gi = tp2.mips_topk_f16_t(q.to(cuda), e.to(cuda), k, valid_n=4900,
+                                 refine=refine)
+    np.testing.assert_allclose(gs.cpu().numpy(), cs.numpy(), rtol=0,
+                               atol=1e-5)
+    assert (gi[:, 0].cpu() == torch.arange(b)).all()
+    assert int(gi.max()) < 4900
+    _, gi = tp2.mips_topk_f16_t(q.to(cuda), e[:128].to(cuda), 100,
+                                valid_n=104, refine=refine)
+    assert all(len(set(row)) == 100 for row in gi.cpu().tolist())
+    assert int(gi.max()) < 104 and int(gi.min()) >= 0

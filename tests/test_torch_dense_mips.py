@@ -168,7 +168,9 @@ def test_auto_dispatch_rule():
     """``"auto"``: the fused scan on CUDA from 16384 rows (the card's
     crossover against the exact scan), exact otherwise (the JAX package's
     rule, ``mips.py:253-255``, sets its own threshold for a TPU); on the CPU
-    the plain scan never runs under auto, and ``pallas2`` runs it."""
+    the plain scan never runs under auto, and ``pallas2`` runs it; fp16
+    rows take the exact scan under auto on the CPU; ``approx`` still
+    raises."""
     assert tmips.AUTO_FUSED_MIN_ROWS == 16384
     assert tmips.auto_method("cuda", 16384) == "pallas2"
     assert tmips.auto_method("cuda", 65536) == "pallas2"
@@ -191,10 +193,27 @@ def test_auto_dispatch_rule():
         assert calls and i[:, 0].tolist() == [0, 1]
     finally:
         tp2.scan_topt_dense_plain = real
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmips.mips_topk_t(q, e.half(), 3)
+    # fp16 rows: "auto" on the CPU is the exact scan, "pallas2" the coarse
+    # scan (B4's plain version) and the f32 rescore
+    real16 = tp2.scan_topt_f16h_plain
+    calls.clear()
+
+    def spy16(*a, **kw):
+        calls.append(1)
+        return real16(*a, **kw)
+
+    tp2.scan_topt_f16h_plain = spy16
+    try:
+        _, i = tmips.mips_topk_t(q, e.half(), 3)
+        assert not calls and i[:, 0].tolist() == [0, 1]
+        _, i = tmips.mips_topk_t(q, e.half(), 3, method="pallas2")
+        assert calls and i[:, 0].tolist() == [0, 1]
+    finally:
+        tp2.scan_topt_f16h_plain = real16
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmips.mips_topk_t(q, e, 3, method="approx")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmips.mips_topk_t(q, e.half(), 3, method="approx")
 
 
 def test_dense_wrapper_refuses_what_it_cannot_take():

@@ -153,15 +153,24 @@ def test_embeddings_as_float_matches(mesh1):
 
 
 def test_unported_modes_raise(mesh1, tmp_path):
-    """Storage modes and index kinds not ported yet name the ROADMAP item
-    instead of running something else; an unknown strategy is an error."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchIndex(10, 8, dtype="float16", device="cpu")
+    """Index kinds not ported yet name the ROADMAP item instead of running
+    something else (IVF, built or loaded); an unknown strategy or dtype is
+    an error. float16, which raised here until its kernels were ported,
+    now loads from a JAX save."""
     with pytest.raises(ValueError, match="rows1"):
         TorchIndex(10, 8, device="cpu", int8r_refine="row")
+    with pytest.raises(ValueError, match="index dtype"):
+        TorchIndex(10, 8, dtype="int4", device="cpu")
     j = JaxIndex(mesh1, 40, 8, dtype=jnp.float16)
     j.set_embeddings(0, _unit_rows(40, 8))
     j.save(str(tmp_path / "f16"), n_files=2)
+    assert load_index(str(tmp_path / "f16"), device="cpu").storage == \
+        "float16"
+    with open(tmp_path / "f16" / "meta.json") as f:
+        meta = json.load(f)
+    meta["kind"] = "ivf"
+    with open(tmp_path / "f16" / "meta.json", "w") as f:
+        json.dump(meta, f)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_index(str(tmp_path / "f16"), device="cpu")
 

@@ -81,7 +81,7 @@ def test_cpu_search_never_launches_the_kernel():
     launches = mips_topt.scan_topt_int8r2.launches
     if not torch.cuda.is_available():
         assert launches == 0  # nothing in this process can launch it
-    idx = ShardedFlatIndex(300, 16, device="cpu")
+    idx = ShardedFlatIndex(300, 16, "int8r", device="cpu")
     rng = np.random.default_rng(0)
     idx.set_embeddings(0, rng.standard_normal((300, 16)).astype(np.float32))
     s, i = idx.search(rng.standard_normal((3, 16)).astype(np.float32), 5)

@@ -80,7 +80,7 @@ def test_build_index_matches_jax():
     encode = jax_make_encode_fn(jr)
     kw = dict(batch_size=32, max_length=48, sort_window=4)
     jax_build_index(jidx, jstore, lambda i, m: encode(tree, i, m), jtok, **kw)
-    tidx = ShardedFlatIndex(n, GEOM["hidden"], device="cpu")
+    tidx = ShardedFlatIndex(n, GEOM["hidden"], "int8r", device="cpu")
     stats = build_index(tidx, tstore, make_encode_fn(tr.eval()), ttok, **kw)
     assert stats["indexing/passages_per_sec"][0] > 0
 
