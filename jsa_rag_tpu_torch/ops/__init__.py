@@ -1,2 +1,4 @@
-"""Search operators: the exact oracle (``mips``) and the int8r scan with its
-CUDA kernel (``mips_topt``)."""
+"""Search operators: the exact oracle and the search dispatchers (``mips``),
+the scan-and-select kernels B1-B8 with their wrappers, quantisers, merge and
+refines (``mips_topt``), and the exact streaming top-k kernel B9
+(``mips_stream``); ``_build`` compiles the CUDA sources at first use."""

@@ -8,9 +8,10 @@ chunks and carry a running (B, k) top-k, so a 1.3M x 1024 corpus never
 materialises a (B, N) score matrix. On the card the products run in full
 f32 with TF32 off — the GPU form of the TPU's HIGHEST-precision rule, which
 keeps the oracle exact. ``mips_topk_t`` dispatches a bf16/f32/fp16 flat
-index's search by the JAX package's method names. The approximate variant
-(``lax.approx_max_k``, a TPU hardware op) is not ported yet: ROADMAP queue A
-item 14.
+index's search by the JAX package's method names, ``mips_topk`` a row-major
+(N, d) search (``mips.py:276-328``, the benches' entry). The approximate
+variant (``lax.approx_max_k``, a TPU hardware op) is not ported yet: ROADMAP
+queue A item 14.
 """
 
 from __future__ import annotations
@@ -19,34 +20,14 @@ from typing import Literal
 
 import torch
 
-from ..device import exact_f32_matmul
-from .mips_topt import mips_topk_dense_t, mips_topk_f16_t
+from .mips_stream import mips_topk_stream
+from .mips_topt import (_scan_cols, mips_topk_dense, mips_topk_dense_t,
+                        mips_topk_f16, mips_topk_f16_t)
 
 Method = Literal["auto", "exact", "approx", "pallas", "pallas2"]
 
-NEG_INF = float(torch.finfo(torch.float32).min)
-
-
-def _scan_cols(queries, cols, n: int, k: int, chunk: int, valid_n: int):
-    """``cols(start, width)`` -> (d, width) f32 chunk of the index."""
-    if queries.device.type == "cuda":
-        exact_f32_matmul()
-    b = queries.shape[0]
-    dev = queries.device
-    q = queries.to(torch.float32)
-    cs = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
-    ci = torch.full((b, k), -1, dtype=torch.int32, device=dev)
-    for start in range(0, n, chunk):
-        width = min(chunk, n - start)
-        s = q @ cols(start, width)
-        idx = torch.arange(start, start + width, dtype=torch.int32,
-                           device=dev)
-        s = torch.where(idx < valid_n, s, NEG_INF)
-        all_s = torch.cat([cs, s], dim=1)
-        all_i = torch.cat([ci, idx.expand(b, -1)], dim=1)
-        cs, a = torch.topk(all_s, k, dim=1)
-        ci = torch.gather(all_i, 1, a)
-    return cs, ci
+APPROX_NOT_PORTED = ("approximate MIPS is not ported yet: ROADMAP queue A "
+                     "item 14")
 
 
 def mips_topk_exact(queries: torch.Tensor, embeddings: torch.Tensor,
@@ -127,6 +108,37 @@ def mips_topk_t(queries: torch.Tensor, emb_rows: torch.Tensor, k: int, *,
             queries, lambda s, w: emb_rows[s:s + w].to(torch.float32).T,
             n, min(k, n), chunk or 16384, nv)
     if method == "approx":
-        raise NotImplementedError(
-            "approximate MIPS is not ported yet: ROADMAP queue A item 14")
+        raise NotImplementedError(APPROX_NOT_PORTED)
+    raise ValueError(f"unknown MIPS method {method!r}")
+
+
+def mips_topk(queries: torch.Tensor, embeddings: torch.Tensor, k: int, *,
+              method: Method = "auto", chunk: int | None = None):
+    """Row-major MIPS (counterpart of ``mips_topk``, ``mips.py:276-328``):
+    ``embeddings`` (N, d) bf16, f32 or fp16, every row valid. -> (scores
+    (B, k) f32, ids (B, k) int32), sorted descending.
+
+    fp16 rows (the JAX int16-bits branch, ``mips.py:288-301``): ``"auto"``,
+    ``"pallas"`` and ``"pallas2"`` run ``mips_topk_f16`` (kernel B7 on a
+    CUDA tensor); ``"exact"`` the f32 scan over the stored values.
+    Otherwise ``"exact"`` is ``mips_topk_exact``, ``"pallas"`` the exact
+    streaming top-k ``mips_topk_stream`` (kernel B9), ``"pallas2"`` the
+    per-tile top-T scan ``mips_topk_dense`` (kernel B6), and ``"auto"``
+    B6 on a CUDA tensor from ``AUTO_FUSED_MIN_ROWS`` rows and ``"exact"``
+    below that or on the CPU (``auto_method``)."""
+    if embeddings.dtype == torch.int16:
+        raise TypeError("fp16 rows are torch.float16 here, not int16 bits")
+    if embeddings.dtype == torch.float16 and method in ("auto", "pallas",
+                                                        "pallas2"):
+        return mips_topk_f16(queries, embeddings, k)
+    if method == "auto":
+        method = auto_method(embeddings.device.type, embeddings.shape[0])
+    if method == "exact":
+        return mips_topk_exact(queries, embeddings, k, chunk=chunk or 16384)
+    if method == "pallas":
+        return mips_topk_stream(queries, embeddings, k)
+    if method == "pallas2":
+        return mips_topk_dense(queries, embeddings, k)
+    if method == "approx":
+        raise NotImplementedError(APPROX_NOT_PORTED)
     raise ValueError(f"unknown MIPS method {method!r}")

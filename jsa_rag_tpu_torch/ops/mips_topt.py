@@ -25,6 +25,15 @@ Counterpart of ``jsa_rag_tpu/ops/mips_pallas2.py``, four subsets:
   of the 16-bit template in ``csrc/topt_dense.cu`` (kernels B4 and B5); their
   plain versions are ``scan_topt_f16h_plain`` and ``scan_topt_f16_plain``.
 
+The row-major wrappers ``mips_topk_pallas2`` (:91-160),
+``mips_topk_pallas2_f16`` (:350-425) and ``mips_topk_pallas2_int8``
+(:948-1028), behind ``ops/mips.py::mips_topk`` and the benches, become
+``mips_topk_dense`` (kernel B6), ``mips_topk_f16`` (B7) and
+``mips_topk_int8`` (B8): in the port's row-major layout their Pallas
+kernels compute the functions of B3, B5 and B2 with every row valid, so
+they launch those instances; each launch is counted where it happens, once,
+under the wrapper's name (``_launch``'s ``counter``).
+
 Every kernel ends in the per-tile emit ``_emit_topt`` (:32-49), shared in
 ``csrc/topt_emit.cuh``. Quantisation, the merge and the refine stay plain
 PyTorch, as they stayed XLA in the JAX package.
@@ -103,6 +112,32 @@ def quantize_int8_residual(x: torch.Tensor):
     r = (x.to(torch.float64) - v1.to(torch.float64) * s1.to(torch.float64))
     v2, s2 = quantize_int8(r.to(torch.float32))
     return v1, s1, v2, s2
+
+
+# ------------------------------------------------------ exact top-k
+def _scan_cols(queries, cols, n: int, k: int, chunk: int, valid_n: int):
+    """Exact top-k by a running ``torch.topk``: ``cols(start, width)`` ->
+    the (d, width) f32 chunk of the index, columns at or past ``valid_n``
+    masked; f32 products with TF32 off on the card. The oracle of
+    ``ops/mips.py`` and kernel B9's plain version."""
+    if queries.device.type == "cuda":
+        exact_f32_matmul()
+    b = queries.shape[0]
+    dev = queries.device
+    q = queries.to(torch.float32)
+    cs = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
+    ci = torch.full((b, k), -1, dtype=torch.int32, device=dev)
+    for start in range(0, n, chunk):
+        width = min(chunk, n - start)
+        s = q @ cols(start, width)
+        idx = torch.arange(start, start + width, dtype=torch.int32,
+                           device=dev)
+        s = torch.where(idx < valid_n, s, NEG_INF)
+        all_s = torch.cat([cs, s], dim=1)
+        all_i = torch.cat([ci, idx.expand(b, -1)], dim=1)
+        cs, a = torch.topk(all_s, k, dim=1)
+        ci = torch.gather(all_i, 1, a)
+    return cs, ci
 
 
 # ------------------------------------------------------------ scan + emit
@@ -233,14 +268,14 @@ def scan_topt_int8_plain(qv, qs, emb, es, valid_n: int, tile_n: int,
                             t_per_tile, emb.device)
 
 
-KERNELS = ("topt_int8r2", "topt_dense")
+KERNELS = ("topt_int8r2", "topt_dense", "mips_stream")
 
 
 @functools.cache
 def _kernel_libs() -> dict:
-    """Both kernel sources, built together (one nvcc each, concurrently) at
-    first use: ``topt_int8r2`` holds B1 and B2, ``topt_dense`` B3, B4 and
-    B5."""
+    """Every kernel source, built together (one nvcc each, concurrently) at
+    first use: ``topt_int8r2`` holds B1 and B2 (B8), ``topt_dense`` B3, B4
+    and B5 (B6, B7), ``mips_stream`` B9 (``ops/mips_stream.py``)."""
     libs = load_libraries(KERNELS)
     # pointers and the stream as c_void_p: undeclared, ctypes would pass
     # them as 32-bit ints and cut them
@@ -257,7 +292,13 @@ def _kernel_libs() -> dict:
             (libs["topt_dense"].topt_f16h_launch,
              [ptr] * 3 + [i32] * 6 + [ptr] * 3),
             (libs["topt_dense"].topt_f16_launch,
-             [ptr] * 4 + [i32] * 6 + [ptr] * 3)):
+             [ptr] * 4 + [i32] * 6 + [ptr] * 3),
+            (libs["mips_stream"].mips_stream_bf16_launch,
+             [ptr] * 3 + [i32] * 6 + [ptr] * 3),
+            (libs["mips_stream"].mips_stream_f32_launch,
+             [ptr] * 2 + [i32] * 6 + [ptr] * 3),
+            (libs["mips_stream"].mips_stream_fixed_smem, [i32]),
+            (libs["mips_stream"].mips_stream_max_smem, [])):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return libs
@@ -282,9 +323,12 @@ def _check_launch(b: int, d: int, n_rows: int, tile_n: int, planes):
 
 
 def _launch(name: str, fn, args, b: int, n_tiles: int, t_per_tile: int,
-            dev):
+            dev, counter):
     """Allocate the (n_tiles, b, T) outputs and launch on the current
-    stream; a non-zero cudaError from the launch raises."""
+    stream; a non-zero cudaError from the launch raises. A clean launch adds
+    one to ``counter.launches``: the scan's own count, or that of the
+    row-major wrapper that launched the same instance, so each launch lands
+    under exactly one name."""
     out_s = torch.empty((n_tiles, b, t_per_tile), dtype=torch.float32,
                         device=dev)
     out_i = torch.empty((n_tiles, b, t_per_tile), dtype=torch.int32,
@@ -294,6 +338,7 @@ def _launch(name: str, fn, args, b: int, n_tiles: int, t_per_tile: int,
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    counter.launches += 1
     return out_s, out_i
 
 
@@ -317,20 +362,18 @@ def scan_topt_int8r2(qv1, qs1, qv2, qs2, emb, es, valid_n: int,
     b, d = qv1.shape
     n_rows = emb.shape[0]
     n_tiles = _check_launch(b, d, n_rows, tile_n, (qv1, qv2, emb))
-    out = _launch(
+    return _launch(
         "topt_int8r2", _kernel_libs()["topt_int8r2"].topt_int8r2_launch,
         (qv1.data_ptr(), qs1.data_ptr(), qv2.data_ptr(), qs2.data_ptr(),
          emb.data_ptr(), es.data_ptr(), b, d, n_rows, int(valid_n), tile_n,
-         t_per_tile), b, n_tiles, t_per_tile, emb.device)
-    scan_topt_int8r2.launches += 1
-    return out
+         t_per_tile), b, n_tiles, t_per_tile, emb.device, scan_topt_int8r2)
 
 
 scan_topt_int8r2.launches = 0
 
 
 def scan_topt_int8(qv, qs, emb, es, valid_n: int, tile_n: int,
-                   t_per_tile: int):
+                   t_per_tile: int, *, counter=None):
     """Single-plane int8 scan + per-tile top-T emit -> (scores, ids), each
     (ceil(N / tile_n), B, T).
 
@@ -338,8 +381,8 @@ def scan_topt_int8(qv, qs, emb, es, valid_n: int, tile_n: int,
     and es (1, N) f32: the index rows and their scales; rows at or past
     ``valid_n`` score NEG_INF. CPU tensors take the plain version; CUDA
     tensors launch the single-plane instance of ``csrc/topt_int8r2.cu``
-    (kernel B2, counted in ``scan_topt_int8.launches``) or raise — there is
-    no fallback."""
+    (kernel B2, counted in ``scan_topt_int8.launches``, or in
+    ``counter.launches`` when given) or raise — there is no fallback."""
     if emb.device.type == "cpu":
         return scan_topt_int8_plain(qv, qs, emb, es, valid_n, tile_n,
                                     t_per_tile)
@@ -349,13 +392,11 @@ def scan_topt_int8(qv, qs, emb, es, valid_n: int, tile_n: int,
     b, d = qv.shape
     n_rows = emb.shape[0]
     n_tiles = _check_launch(b, d, n_rows, tile_n, (qv, emb))
-    out = _launch(
+    return _launch(
         "topt_int8", _kernel_libs()["topt_int8r2"].topt_int8_launch,
         (qv.data_ptr(), qs.data_ptr(), emb.data_ptr(), es.data_ptr(), b, d,
          n_rows, int(valid_n), tile_n, t_per_tile), b, n_tiles, t_per_tile,
-        emb.device)
-    scan_topt_int8.launches += 1
-    return out
+        emb.device, counter or scan_topt_int8)
 
 
 scan_topt_int8.launches = 0
@@ -410,15 +451,17 @@ def scan_topt_dense_plain(q, emb, valid_n: int, tile_n: int,
                             tile_n, t_per_tile, emb.device)
 
 
-def scan_topt_dense(q, emb, valid_n: int, tile_n: int, t_per_tile: int):
+def scan_topt_dense(q, emb, valid_n: int, tile_n: int, t_per_tile: int, *,
+                    counter=None):
     """Dense scan + per-tile top-T emit -> (scores, ids), each
     (ceil(N / tile_n), B, T).
 
     q (B, d) f32; emb (N, d) bf16 or f32 rows; columns at or past
     ``valid_n`` score NEG_INF. CPU tensors take the plain version; CUDA
     tensors launch ``csrc/topt_dense.cu`` (and count it in
-    ``scan_topt_dense.launches``) or raise — there is no fallback. For bf16
-    rows the query goes in as its (hi, lo) bf16 split."""
+    ``scan_topt_dense.launches``, or in ``counter.launches`` when given) or
+    raise — there is no fallback. For bf16 rows the query goes in as its
+    (hi, lo) bf16 split."""
     if emb.device.type == "cpu":
         return scan_topt_dense_plain(q, emb, valid_n, tile_n, t_per_tile)
     if emb.device.type != "cuda":
@@ -435,11 +478,10 @@ def scan_topt_dense(q, emb, valid_n: int, tile_n: int, t_per_tile: int):
     else:
         n_tiles = _check_launch(b, d, n_rows, tile_n, (q, emb))
         fn, ptrs = lib.topt_dense_f32_launch, (q.data_ptr(),)
-    out = _launch("topt_dense", fn,
-                  (*ptrs, emb.data_ptr(), b, d, n_rows, int(valid_n), tile_n,
-                   t_per_tile), b, n_tiles, t_per_tile, emb.device)
-    scan_topt_dense.launches += 1
-    return out
+    return _launch("topt_dense", fn,
+                   (*ptrs, emb.data_ptr(), b, d, n_rows, int(valid_n), tile_n,
+                    t_per_tile), b, n_tiles, t_per_tile, emb.device,
+                   counter or scan_topt_dense)
 
 
 scan_topt_dense.launches = 0
@@ -454,6 +496,7 @@ def mips_topk_dense_t(
     pool_n: int | None = None,
     tile_n: int = 256,
     t_per_tile: int = 4,
+    counter=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused MIPS over a dense index (counterpart of
     ``mips_topk_pallas2_t``): per-tile top-T scan, then the exact top-k
@@ -462,17 +505,38 @@ def mips_topk_dense_t(
     ``valid_n`` masks rows at or past it (runtime count); ``pool_n`` is a
     lower bound on valid rows for the per-tile pool depth. ``tile_n`` is the
     emit tile: 256 against the TPU's 2048 (a tile of scores has to fit one
-    block's shared memory), clamped to ``round_up(N, 128)``."""
+    block's shared memory), clamped to ``round_up(N, 128)``. ``counter``
+    goes to the scan (``scan_topt_dense``)."""
     b = queries.shape[0]
     n = emb_rows.shape[0]
     k = min(k, n)
     valid_n = n if valid_n is None else int(valid_n)
     tile_n, t = scan_geometry(n, k, pool_n, tile_n, t_per_tile)
     cand_s, cand_i = scan_topt_dense(
-        queries.to(torch.float32).contiguous(), emb_rows, valid_n, tile_n, t)
+        queries.to(torch.float32).contiguous(), emb_rows, valid_n, tile_n, t,
+        counter=counter)
     cand_s = cand_s.permute(1, 0, 2).reshape(b, -1)
     cand_i = cand_i.permute(1, 0, 2).reshape(b, -1)
     return _merge_candidates(cand_s, cand_i, k, b)
+
+
+def mips_topk_dense(queries: torch.Tensor, emb_rows: torch.Tensor, k: int,
+                    *, tile_n: int = 256, t_per_tile: int = 4):
+    """Fused MIPS over row-major dense rows, every row valid (counterpart
+    of ``mips_topk_pallas2``, ``mips_pallas2.py:91-160``, kernel B6):
+    queries (B, d) bf16 or f32, ``emb_rows`` (N, d) bf16 or f32 -> (scores
+    (B, k) f32, ids (B, k) int32). The Pallas kernel ``_topt_kernel``
+    (:73-88) is ``_topt_kernel_t``'s function on rows, so on a CUDA tensor
+    this launches kernel B3's instance with the valid count N (counted in
+    ``mips_topk_dense.launches``); a CPU tensor takes its plain version. A
+    bf16 query splits to lo = 0 and scores exactly bf16 x bf16. The pool
+    depth T is ``_pool_t`` over the port's emit tile (256, clamped to
+    ``round_up(N, 128)``): exact for k <= T."""
+    return mips_topk_dense_t(queries, emb_rows, k, tile_n=tile_n,
+                             t_per_tile=t_per_tile, counter=mips_topk_dense)
+
+
+mips_topk_dense.launches = 0
 
 
 # -------------------------------------------------------------- fp16 scan
@@ -539,8 +603,10 @@ def scan_topt_f16_plain(q, emb, valid_n: int, tile_n: int,
                             tile_n, t_per_tile, emb.device)
 
 
-def _scan_f16(entry: str, planes: int, q, emb, valid_n, tile_n, t_per_tile):
-    """Launch one fp16 instance of ``csrc/topt_dense.cu`` on CUDA tensors."""
+def _scan_f16(entry: str, planes: int, q, emb, valid_n, tile_n, t_per_tile,
+              counter):
+    """Launch one fp16 instance of ``csrc/topt_dense.cu`` on CUDA tensors,
+    counted in ``counter.launches``."""
     if emb.device.type != "cuda":
         raise ValueError(f"unsupported device {emb.device}")
     _check_dense_args(q, emb, valid_n, tile_n, t_per_tile, F16)
@@ -553,7 +619,7 @@ def _scan_f16(entry: str, planes: int, q, emb, valid_n, tile_n, t_per_tile):
                                   f"{entry}_launch"),
                    (*(t.data_ptr() for t in qplanes), inv_s.data_ptr(),
                     emb.data_ptr(), b, d, n_rows, int(valid_n), tile_n,
-                    t_per_tile), b, n_tiles, t_per_tile, emb.device)
+                    t_per_tile), b, n_tiles, t_per_tile, emb.device, counter)
 
 
 def scan_topt_f16h(q, emb, valid_n: int, tile_n: int, t_per_tile: int):
@@ -565,24 +631,24 @@ def scan_topt_f16h(q, emb, valid_n: int, tile_n: int, t_per_tile: int):
     ``scan_topt_f16h.launches``) or raise — there is no fallback."""
     if emb.device.type == "cpu":
         return scan_topt_f16h_plain(q, emb, valid_n, tile_n, t_per_tile)
-    out = _scan_f16("topt_f16h", 1, q, emb, valid_n, tile_n, t_per_tile)
-    scan_topt_f16h.launches += 1
-    return out
+    return _scan_f16("topt_f16h", 1, q, emb, valid_n, tile_n, t_per_tile,
+                     scan_topt_f16h)
 
 
 scan_topt_f16h.launches = 0
 
 
-def scan_topt_f16(q, emb, valid_n: int, tile_n: int, t_per_tile: int):
+def scan_topt_f16(q, emb, valid_n: int, tile_n: int, t_per_tile: int, *,
+                  counter=None):
     """fp16-exact scan + per-tile top-T emit -> (scores, ids), as
     ``scan_topt_f16h`` but with the query as two fp16 planes, which keeps
     it to ~22 bits. CPU tensors take the plain version; CUDA tensors launch
-    kernel B5 (counted in ``scan_topt_f16.launches``) or raise."""
+    kernel B5 (counted in ``scan_topt_f16.launches``, or in
+    ``counter.launches`` when given) or raise."""
     if emb.device.type == "cpu":
         return scan_topt_f16_plain(q, emb, valid_n, tile_n, t_per_tile)
-    out = _scan_f16("topt_f16", 2, q, emb, valid_n, tile_n, t_per_tile)
-    scan_topt_f16.launches += 1
-    return out
+    return _scan_f16("topt_f16", 2, q, emb, valid_n, tile_n, t_per_tile,
+                     counter or scan_topt_f16)
 
 
 scan_topt_f16.launches = 0
@@ -598,6 +664,7 @@ def mips_topk_f16_t(
     tile_n: int = 256,
     t_per_tile: int = 4,
     refine: int = 0,
+    counter=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused MIPS over an fp16 index (counterpart of
     ``mips_topk_pallas2_f16_t``) -> (scores (B, k) f32, ids (B, k) int32).
@@ -605,7 +672,8 @@ def mips_topk_f16_t(
     ``refine=r>0``: the coarse scan (kernel B4) and the exact merge to the
     top-(r*k), rescored in f32 from the rows by ``_f16_refine``.
     ``refine=0``: fp16-exact scores (kernel B5), merged to the top-k.
-    ``valid_n``/``pool_n``/``tile_n`` as in ``mips_topk_dense_t``."""
+    ``valid_n``/``pool_n``/``tile_n``/``counter`` as in
+    ``mips_topk_dense_t``."""
     b = queries.shape[0]
     n = emb_rows.shape[0]
     k = min(k, n)
@@ -613,14 +681,36 @@ def mips_topk_f16_t(
     valid_n = n if valid_n is None else int(valid_n)
     tile_n, t = scan_geometry(n, k_sel, pool_n, tile_n, t_per_tile)
     q = queries.to(torch.float32).contiguous()
-    scan = scan_topt_f16h if refine else scan_topt_f16
-    cand_s, cand_i = scan(q, emb_rows, valid_n, tile_n, t)
+    if refine:
+        cand_s, cand_i = scan_topt_f16h(q, emb_rows, valid_n, tile_n, t)
+    else:
+        cand_s, cand_i = scan_topt_f16(q, emb_rows, valid_n, tile_n, t,
+                                       counter=counter)
     cand_s = cand_s.permute(1, 0, 2).reshape(b, -1)
     cand_i = cand_i.permute(1, 0, 2).reshape(b, -1)
     if not refine:
         return _merge_candidates(cand_s, cand_i, k, b)
     _, ids = _merge_candidates(cand_s, cand_i, k_sel, b)
     return _f16_refine(q, emb_rows, ids, k, valid_n)
+
+
+def mips_topk_f16(queries: torch.Tensor, emb_rows: torch.Tensor, k: int, *,
+                  tile_n: int = 256, t_per_tile: int = 4):
+    """Fused MIPS over row-major fp16 rows, every row valid (counterpart of
+    ``mips_topk_pallas2_f16``, ``mips_pallas2.py:350-425``, kernel B7):
+    queries (B, d), ``emb_rows`` (N, d) ``torch.float16`` -> (scores (B, k)
+    f32, ids (B, k) int32). The JAX package stores fp16 as int16 bits and
+    its ``_topt_f16_kernel`` (:326-347) decodes them and scores three bf16
+    passes (~16 bits of the query, subnormals flushed); here the rows are
+    native fp16 and a CUDA tensor launches kernel B5's instance (two fp16
+    query planes, ~22 bits, subnormals kept) with the valid count N,
+    counted in ``mips_topk_f16.launches``; a CPU tensor takes its plain
+    version. T as in ``mips_topk_dense``."""
+    return mips_topk_f16_t(queries, emb_rows, k, tile_n=tile_n,
+                           t_per_tile=t_per_tile, counter=mips_topk_f16)
+
+
+mips_topk_f16.launches = 0
 
 
 # ------------------------------------------------------- merge and refine
@@ -705,6 +795,7 @@ def mips_topk_int8_t(
     res_rows: torch.Tensor | None = None,   # (N, d) int8: int8r plane 2
     res_scale: torch.Tensor | None = None,  # (1, N) f32
     int8r_refine: str = "rows",
+    counter=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused MIPS over an int8 index: counterpart of
     ``mips_topk_pallas2_int8_t`` -> (scores (B, k) f32, ids (B, k) int32).
@@ -716,7 +807,7 @@ def mips_topk_int8_t(
     kernel B1); "rows1" scans with one plane and adds the plane-2 term
     (``_int8r_rows_refine``); "cols" rebuilds both planes (``_int8r_refine``).
     Every scan but "rows" is kernel B2. ``valid_n``/``pool_n``/``tile_n``
-    as in ``mips_topk_int8r_t``."""
+    as in ``mips_topk_int8r_t``; ``counter`` goes to ``scan_topt_int8``."""
     if refine and f16_rows is None and res_rows is None:
         raise ValueError(
             "int8 refine needs f16_rows (hybrid) or res_rows (residual)")
@@ -739,7 +830,7 @@ def mips_topk_int8_t(
     q = queries.to(torch.float32)
     qv, qs = quantize_int8(q)
     cand_s, cand_i = scan_topt_int8(qv, qs, emb_rows, emb_scale, valid_n,
-                                    tile_n, t)
+                                    tile_n, t, counter=counter)
     cand_s = cand_s.permute(1, 0, 2).reshape(b, -1)
     cand_i = cand_i.permute(1, 0, 2).reshape(b, -1)
     if not refine:
@@ -752,6 +843,30 @@ def mips_topk_int8_t(
                                   valid_n)
     return _int8r_refine(q, emb_rows, emb_scale, res_rows, res_scale, ids, k,
                          valid_n)
+
+
+def mips_topk_int8(queries: torch.Tensor, emb_q: torch.Tensor,
+                   emb_scale: torch.Tensor, k: int, *, tile_n: int = 256,
+                   t_per_tile: int = 4):
+    """Fused MIPS over a row-major int8 index, every row valid (counterpart
+    of ``mips_topk_pallas2_int8``, ``mips_pallas2.py:948-1028``, kernel
+    B8): queries (B, d) f32, ``emb_q`` (N, d) int8 codes and ``emb_scale``
+    (N, 1) f32 row scales -> (scores (B, k) f32, ids (B, k) int32). The
+    query is quantised by ``quantize_int8`` (the JAX package's codes bit
+    for bit) and scored as ``(acc * qs) * es``; the Pallas kernel
+    ``_topt_int8_kernel`` (:705-721) is ``_topt_int8_kernel_t``'s function
+    on rows, so a CUDA tensor launches kernel B2's instance with the valid
+    count N (counted in ``mips_topk_int8.launches``); a CPU tensor takes
+    its plain version. T as in ``mips_topk_dense``."""
+    if emb_scale.numel() != emb_q.shape[0]:
+        raise ValueError(f"emb_scale has {emb_scale.numel()} elements, want "
+                         f"{emb_q.shape[0]}")
+    return mips_topk_int8_t(queries, emb_q, emb_scale.reshape(1, -1), k,
+                            tile_n=tile_n, t_per_tile=t_per_tile,
+                            counter=mips_topk_int8)
+
+
+mips_topk_int8.launches = 0
 
 
 def mips_topk_int8r_t(

@@ -21,12 +21,20 @@ plane by the rows in f32, so only the order of the f32 sums differs; B5
 scores the f32 query split into two fp16 planes (<= 2^-22 * sum|q_i x_i|
 left) against the plain version's f32 product. Both agree to 1e-5 of
 |q|·|x| (the effective query's norm times the row's), the bound for unit
-rows at d = 1024, and ids as for B3."""
+rows at d = 1024, and ids as for B3.
+B6, B7 and B8 (the row-major wrappers over B3's, B5's and B2's instances)
+and B9 (the exact streaming top-k, B3's scoring core): the final top-k on
+the card against the CPU path (the plain versions): sorted scores within
+B3's bound (1e-4·|q|·|x| for bf16 rows, 1e-5 for f32 and fp16, 1e-5
+relative for int8), distinct valid ids, and where an id differs its score
+(f64 on the stored values) within twice the bound of the plain version's
+at that rank; tied rows give equal score multisets."""
 
 import numpy as np
 import pytest
 import torch
 
+from jsa_rag_tpu_torch.ops import mips_stream as tstream
 from jsa_rag_tpu_torch.ops import mips_topt as tp2
 
 
@@ -402,3 +410,143 @@ def test_f16_search_on_card_matches_cpu(cuda, refine):
                                 valid_n=104, refine=refine)
     assert all(len(set(row)) == 100 for row in gi.cpu().tolist())
     assert int(gi.max()) < 104 and int(gi.min()) >= 0
+
+
+# ------------------------------------------------- B6-B9: the row searches
+def _assert_topk_close(q, emb, ks, ki, ps, pi, rtol):
+    """The card's top-k against the plain version's: sorted scores within
+    rtol·|q|·max|x|, distinct ids in [0, N), and a differing id's stored
+    score within twice that of the plain version's at its rank."""
+    n, k = emb.shape[0], ps.shape[1]
+    ks, ki = ks.cpu(), ki.cpu()
+    q, emb = q.float().cpu(), emb.cpu()
+    assert ks.shape == ps.shape and ki.dtype == torch.int32
+    assert int(ki.min()) >= 0 and int(ki.max()) < n
+    assert all(len(set(r)) == k for r in ki.tolist())
+    xn = torch.linalg.vector_norm(emb.float(), dim=1).max()
+    tol = rtol * q.norm(dim=1, keepdim=True) * xn
+    assert bool(((ks - ps).abs() <= tol).all()), float((ks - ps).abs().max())
+    r, c = (ki != pi).nonzero(as_tuple=True)
+    if r.numel():
+        true = (q.double()[r] * emb[ki[r, c].long()].double()).sum(-1)
+        assert bool(((true - ps[r, c].double()).abs()
+                     <= 2 * tol[r, 0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,n,d,k", [
+    ("bfloat16", 64, 262_144 - 777, 1024, 100),  # a ragged last tile
+    ("bfloat16", 8, 20_000, 1024, 100),
+    ("float32", 5, 4099, 256, 1000),             # qpb sized from k
+    ("float32", 5, 4099, 256, 4099),             # k = N
+    ("bfloat16", 40, 1000, 64, 300),             # slices shorter than k
+])
+def test_stream_kernel_matches_plain(cuda, dtype, b, n, d, k):
+    """Kernel B9 against its plain version (the exact f32 top-k)."""
+    g = torch.Generator(device=cuda).manual_seed(b + n + d)
+    emb = _unit(g, (n, d), cuda).to(getattr(torch, dtype))
+    q = _unit(g, (b, d), cuda)
+    before = tstream.mips_topk_stream.launches
+    ks, ki = tstream.mips_topk_stream(q, emb, k)
+    torch.cuda.synchronize()
+    assert tstream.mips_topk_stream.launches == before + 1
+    ps, pi = tstream.mips_topk_stream_plain(q.cpu(), emb.cpu(), k)
+    _assert_topk_close(q, emb, ks, ki, ps, pi,
+                       1e-4 if dtype == "bfloat16" else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_stream_kernel_tied_rows(cuda, dtype):
+    """A slab of tied rows (scores repeat 64 times): the card returns the
+    plain version's score multiset, every id once."""
+    q = torch.ones((4, 32), device=cuda)
+    e = torch.arange(16, dtype=torch.float32, device=cuda)[:, None]
+    e = e.repeat(64, 32).to(getattr(torch, dtype))  # 1024 rows, 16 values
+    ks, ki = tstream.mips_topk_stream(q, e, 200)
+    ps, _ = tstream.mips_topk_stream_plain(q.cpu(), e.cpu(), 200)
+    torch.cuda.synchronize()
+    assert torch.equal(ks.cpu(), ps)
+    assert all(len(set(r)) == 200 for r in ki.tolist())
+    assert torch.equal((q @ e.float().T).gather(1, ki.long()), ks)
+
+
+@pytest.mark.cuda
+def test_stream_kernel_refuses_k_above_its_limit(cuda):
+    fixed, most = tstream.stream_smem(torch.bfloat16)
+    limit = (most - fixed) // 8
+    emb = torch.zeros((limit + 1, 16), dtype=torch.bfloat16, device=cuda)
+    q = torch.ones((1, 16), device=cuda)
+    with pytest.raises(ValueError, match=str(limit)):
+        tstream.mips_topk_stream(q, emb, limit + 1)
+    s, i = tstream.mips_topk_stream(q, emb, limit)  # the limit itself runs
+    torch.cuda.synchronize()
+    assert len(set(i[0].tolist())) == limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B6", "B7", "B8"])
+@pytest.mark.parametrize("b,n,d,k", [
+    (64, 262_144 - 777, 1024, 100),
+    (5, 4099, 1024, 100),  # k = 100 above T = 15
+])
+def test_row_wrappers_on_card_match_cpu(cuda, kernel, b, n, d, k):
+    """``mips_topk_dense`` (B6, bf16 rows and a bf16 query),
+    ``mips_topk_f16`` (B7) and ``mips_topk_int8`` (B8) on the card return
+    the CPU path's top-k and count each launch once, under their own name
+    and not under that of the template's scan (B3, B5, B2)."""
+    g = torch.Generator(device=cuda).manual_seed(b + n + len(kernel))
+    e = _unit(g, (n, d), cuda)
+    q = _unit(g, (b, d), cuda)
+    if kernel == "B6":
+        fn, q = tp2.mips_topk_dense, q.to(torch.bfloat16)
+        ops, rtol, ref = (e.to(torch.bfloat16),), 1e-4, e.to(torch.bfloat16)
+    elif kernel == "B7":
+        fn, ops, rtol = tp2.mips_topk_f16, (e.half(),), 1e-5
+        ref = e.half()
+    else:
+        fn = tp2.mips_topk_int8
+        v, s = tp2.quantize_int8(e)
+        ops, rtol, ref = (v, s), 1e-5, v.float() * s
+    scan = {"B6": tp2.scan_topt_dense, "B7": tp2.scan_topt_f16,
+            "B8": tp2.scan_topt_int8}[kernel]
+    before = fn.launches, scan.launches
+    ks, ki = fn(q, *ops, k)
+    torch.cuda.synchronize()
+    assert (fn.launches, scan.launches) == (before[0] + 1, before[1])
+    ps, pi = fn(q.cpu(), *(o.cpu() for o in ops), k)
+    qr = q.float()
+    if kernel == "B8":
+        qv, qs = tp2.quantize_int8(qr)
+        qr = qv.float() * qs
+    _assert_topk_close(qr, ref, ks, ki, ps, pi, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B6", "B7", "B8", "B9"])
+def test_row_wrappers_refuse_what_they_cannot_take(cuda, kernel):
+    """A wrong row dtype, non-contiguous or misaligned rows, and a CPU
+    query against rows on the card raise before any launch."""
+    n, d = 256, 64
+    dtype = {"B6": torch.bfloat16, "B7": torch.float16, "B8": torch.int8,
+             "B9": torch.bfloat16}[kernel]
+    wrong = {"B6": torch.float16, "B7": torch.bfloat16, "B8": torch.float16,
+             "B9": torch.int8}[kernel]
+    fn = {"B6": tp2.mips_topk_dense, "B7": tp2.mips_topk_f16,
+          "B8": tp2.mips_topk_int8, "B9": tstream.mips_topk_stream}[kernel]
+    extra = ((torch.ones((n, 1), device=cuda),) if kernel == "B8" else ())
+    q = torch.ones((2, d), device=cuda)
+    rows = torch.zeros((n, d), dtype=dtype, device=cuda)
+    buf = torch.zeros(n * d + 1, dtype=dtype, device=cuda)
+    misaligned = buf[1:].view(n, d)
+    assert misaligned.data_ptr() % 16
+    before = fn.launches
+    with pytest.raises(TypeError):
+        fn(q, rows.to(wrong), *extra, 4)
+    with pytest.raises(ValueError):
+        fn(q, rows.t().contiguous().t(), *extra, 4)
+    with pytest.raises(ValueError):
+        fn(q, misaligned, *extra, 4)
+    with pytest.raises(ValueError):
+        fn(q.cpu(), rows, *extra, 4)
+    assert fn.launches == before

@@ -134,6 +134,45 @@ def test_cpu_int8_searches_never_launch_b2(storage):
     assert mips_topt.scan_topt_int8.launches == launches
 
 
+@pytest.mark.parametrize("search", ["pallas2", "pallas", "float16",
+                                    "int8", "bench", "storage-bench"])
+def test_cpu_row_searches_never_launch_b6_to_b9(search):
+    """The row-major wrappers of kernels B6-B9, and both benches, run their
+    plain versions on the CPU: no counter moves."""
+    from jsa_rag_tpu_torch import bench
+    from jsa_rag_tpu_torch.analysis import storage_recall_bench
+    from jsa_rag_tpu_torch.ops import mips, mips_stream
+
+    counters = (mips_topt.mips_topk_dense, mips_topt.mips_topk_f16,
+                mips_topt.mips_topk_int8, mips_stream.mips_topk_stream)
+    before = [c.launches for c in counters]
+    if not torch.cuda.is_available():
+        assert before == [0, 0, 0, 0]
+    rng = np.random.default_rng(0)
+    e = torch.from_numpy(rng.standard_normal((300, 16)).astype(np.float32))
+    e /= e.norm(dim=1, keepdim=True)
+    q = e[:3].clone()
+    if search in ("pallas2", "pallas"):
+        _, i = mips.mips_topk(q, e, 5, method=search)
+    elif search == "float16":
+        _, i = mips.mips_topk(q, e.half(), 5)
+    elif search == "int8":
+        _, i = mips_topt.mips_topk_int8(q, *mips_topt.quantize_int8(e), 5)
+    if search == "bench":
+        for method in ("pallas2", "pallas"):
+            bench.main(["--device", "cpu", "--n", "300", "--d", "16",
+                        "--b", "3", "--k", "5", "--iters", "2", "--method",
+                        method])
+    elif search == "storage-bench":
+        storage_recall_bench.main([
+            "--device", "cpu", "--n", "300", "--d", "16", "--b", "3",
+            "--k", "20", "--iters", "1", "--clusters", "8", "--modes",
+            "bf16_row,f16_row,int8"])
+    else:
+        assert i[:, 0].tolist() == [0, 1, 2]
+    assert [c.launches for c in counters] == before
+
+
 def test_int8_wrapper_refuses_what_it_cannot_take():
     q = torch.zeros((2, 16), dtype=torch.int8)
     qs = torch.ones((2, 1))
