@@ -12,15 +12,18 @@ query against bf16 rows a batch, timed the same way) and ``frac_of_floor``.
 
     python -m jsa_rag_tpu_torch.bench                   # the Options default
     python -m jsa_rag_tpu_torch.bench --method pallas   # kernel B9
+    python -m jsa_rag_tpu_torch.bench --index_dtype int8  # its method, int8t
     python -m jsa_rag_tpu_torch.bench --device cpu --n 4096 --d 64 --b 16
 
 The default method follows ``config.Options`` (``bench.py:88-97``), so the
 headline measures the storage users get. Methods, each through the port's
 wrapper: ``int8r`` (kernel B1), ``int8r_rows1`` and ``hybrid`` (B2),
 ``pallas2f16t`` (B4), ``pallas2f16t_exact`` (B5), ``pallas2t`` (B3),
-``pallas2`` (B6), ``pallas`` (B9); ``approx`` raises (ROADMAP queue A item
-14). Only the store the method needs is built, on the device, by the
-port's flat index in row chunks (a monolithic quantise of 1.3M x 1024 f32
+``pallas2`` (B6), ``pallas`` (B9), ``int8t`` (B2 over int8 storage, no
+refine: the method of ``--index_dtype int8``, which the JAX bench names but
+does not define); ``approx`` raises (ROADMAP queue A item 14). Only the
+store the method needs is built, on the device, by the port's flat index
+in row chunks (a monolithic quantise of 1.3M x 1024 f32
 holds ~11 GB of intermediates), beside bf16 rows for the floor. On the
 card the searches are timed with CUDA events after a warm-up; with
 ``--device cpu`` the plain versions run under the host clock. There is no
@@ -116,6 +119,9 @@ def methods(n: int, k: int) -> dict:
         "hybrid": ("hybrid", lambda q, x: mt.mips_topk_int8_t(
             q, *x.hybrid_copies(), k, refine=4, f16_rows=x.embeddings,
             **pool)),
+        # --index_dtype int8's method (refine 0: the plain int8 search, B2)
+        "int8t": ("int8", lambda q, x: mt.mips_topk_int8_t(
+            q, x.embeddings, x.scales, k, refine=0, **pool)),
     }
 
 
@@ -161,7 +167,11 @@ def parse_args(argv=None):
     ap.add_argument("--k", type=int, default=100)
     ap.add_argument("--iters", type=int, default=8)
     ap.add_argument("--method", default=None,
-                    help="default: the method of Options().index_dtype")
+                    help="default: the method of --index_dtype")
+    ap.add_argument("--index_dtype", default=Options().index_dtype,
+                    choices=sorted(METHOD_OF_DTYPE),
+                    help="the storage whose method runs when --method is "
+                    "not given (default: Options')")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
@@ -169,7 +179,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    method = args.method or default_method()
+    method = args.method or default_method(
+        Options(index_dtype=args.index_dtype))
     if method == "approx":
         raise NotImplementedError(APPROX_NOT_PORTED)
     table = methods(args.n, args.k)

@@ -72,9 +72,12 @@ def pooling_for_model_name(name: str) -> str:
     return "mean"
 
 
-def load_or_initialize_model(opt: Options, store: PassageStore):
-    """-> (RAGModel, params dict, step). Restores from ``opt.model_path``
-    when it points at a checkpoint run/step dir."""
+def load_or_initialize_model(opt: Options, store: PassageStore,
+                              with_opt_state: bool = False):
+    """-> (RAGModel, params dict, step), and the checkpoint's
+    ``opt_state`` (the port's optimizer state, or None) as a fourth item
+    with ``with_opt_state``. Restores from ``opt.model_path`` when it points
+    at a checkpoint run/step dir."""
     if opt.param_dtype != "float32":
         raise NotImplementedError(
             f"param_dtype {opt.param_dtype!r}: the port keeps float32 "
@@ -117,8 +120,10 @@ def load_or_initialize_model(opt: Options, store: PassageStore):
                        and not opt.simplify_JSA)
 
     step = 0
+    opt_state = None
     if restore:
         state = load_checkpoint(opt.model_path)
+        opt_state = state.pop("opt_state", None)
         restored = state["params"]
         retriever = retriever_from_numpy(restored["retriever"], ret_cfg,
                                          device)
@@ -150,4 +155,6 @@ def load_or_initialize_model(opt: Options, store: PassageStore):
                                        device=device)
     model = RAGModel(opt, retriever, gen_cfg, retriever_tok, generator_tok,
                      store, lora_cfg=lora_cfg)
+    if with_opt_state:
+        return model, params, step, opt_state
     return model, params, step

@@ -294,11 +294,12 @@ def _kernel_libs() -> dict:
             (libs["topt_dense"].topt_f16_launch,
              [ptr] * 4 + [i32] * 6 + [ptr] * 3),
             (libs["mips_stream"].mips_stream_bf16_launch,
-             [ptr] * 3 + [i32] * 6 + [ptr] * 3),
+             [ptr] * 4 + [i32] * 6 + [ptr] * 3),
             (libs["mips_stream"].mips_stream_f32_launch,
              [ptr] * 2 + [i32] * 6 + [ptr] * 3),
-            (libs["mips_stream"].mips_stream_fixed_smem, [i32]),
-            (libs["mips_stream"].mips_stream_max_smem, [])):
+            (libs["mips_stream"].mips_stream_smem, [i32] * 4),
+            (libs["mips_stream"].mips_stream_qpb, [i32]),
+            (libs["mips_stream"].mips_stream_k_max, [])):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return libs
@@ -306,15 +307,16 @@ def _kernel_libs() -> dict:
 
 def _check_launch(b: int, d: int, n_rows: int, tile_n: int, planes):
     """What every kernel refuses: an emit tile they are not built for, d not
-    a multiple of 16, planes not 16-byte aligned for cp.async, or a grid or
-    row id past int32. -> n_tiles."""
+    a multiple of 16, planes not 16-byte aligned for cp.async and TMA, or a
+    grid or row id past int32. -> n_tiles."""
     if tile_n not in KERNEL_TILES:
         raise ValueError(f"kernel tile_n must be one of {KERNEL_TILES}")
     if d % 16 or any(t.data_ptr() % 16 for t in planes):
         raise ValueError("kernel needs d % 16 == 0 and 16-byte aligned "
                          "planes")
     n_tiles = -(-n_rows // tile_n)
-    # one block per (32-query tile, index tile) on a 1-D grid
+    # the int8 and f32 kernels: one block per (32-query tile, index tile) on
+    # a 1-D grid (the 16-bit ones run persistent blocks)
     if (b < 1 or n_tiles < 1 or n_rows >= 2 ** 31 - tile_n
             or -(-b // 32) * n_tiles >= 2 ** 31):
         raise ValueError(f"kernel grid out of range: b={b}, "
@@ -408,8 +410,10 @@ DENSE_DTYPES = (torch.bfloat16, torch.float32)
 
 def _check_dense_args(q, emb, valid_n, tile_n, t_per_tile,
                       dtypes=DENSE_DTYPES):
-    if q.dtype != torch.float32:
-        raise TypeError(f"queries must be float32, got {q.dtype}")
+    if q.dtype != torch.float32 and not (q.dtype == emb.dtype
+                                         == torch.bfloat16):
+        raise TypeError(f"queries must be float32 (or bfloat16 against "
+                        f"bfloat16 rows), got {q.dtype}")
     if emb.dtype not in dtypes:
         raise TypeError(f"index rows must be one of {dtypes}, got "
                         f"{emb.dtype}")
@@ -435,14 +439,34 @@ def split_hilo_bf16(q: torch.Tensor):
     return hi, (q - hi.to(torch.float32)).to(torch.bfloat16)
 
 
+def bf16_query_planes(q: torch.Tensor) -> tuple:
+    """The bf16 planes a 16-bit kernel scores against bf16 rows, chosen by
+    the query's dtype alone (no look at its values, no sync): a bf16 query
+    is its own single plane, exact as it is; an f32 query is its (hi, lo)
+    split (``split_hilo_bf16``)."""
+    if q.dtype == torch.bfloat16:
+        return (q,)
+    return split_hilo_bf16(q)
+
+
+def dense_query(queries: torch.Tensor, emb_rows: torch.Tensor):
+    """The query a dense wrapper hands its scan: a bf16 query against bf16
+    rows stays bf16 (one plane on the card), any other is widened to f32."""
+    if queries.dtype == emb_rows.dtype == torch.bfloat16:
+        return queries.contiguous()
+    return queries.to(torch.float32).contiguous()
+
+
 def scan_topt_dense_plain(q, emb, valid_n: int, tile_n: int,
                           t_per_tile: int):
-    """Plain PyTorch version of kernel B3: an f32 matmul of the f32 query
-    against the rows cast to f32 (TF32 off on the card), the valid-count
-    mask and the per-tile top-T of ``_tile_topt_plain``."""
+    """Plain PyTorch version of kernel B3: an f32 matmul of the query (a
+    bf16 one widened exactly) against the rows cast to f32 (TF32 off on the
+    card), the valid-count mask and the per-tile top-T of
+    ``_tile_topt_plain``."""
     _check_dense_args(q, emb, valid_n, tile_n, t_per_tile)
     if q.device.type == "cuda":
         exact_f32_matmul()
+    q = q.to(torch.float32)
 
     def score_rows(lo, hi):
         return q @ emb[lo:hi].to(torch.float32).T
@@ -456,12 +480,13 @@ def scan_topt_dense(q, emb, valid_n: int, tile_n: int, t_per_tile: int, *,
     """Dense scan + per-tile top-T emit -> (scores, ids), each
     (ceil(N / tile_n), B, T).
 
-    q (B, d) f32; emb (N, d) bf16 or f32 rows; columns at or past
-    ``valid_n`` score NEG_INF. CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/topt_dense.cu`` (and count it in
-    ``scan_topt_dense.launches``, or in ``counter.launches`` when given) or
-    raise — there is no fallback. For bf16 rows the query goes in as its
-    (hi, lo) bf16 split."""
+    q (B, d) f32, or bf16 against bf16 rows; emb (N, d) bf16 or f32 rows;
+    columns at or past ``valid_n`` score NEG_INF. CPU tensors take the
+    plain version; CUDA tensors launch ``csrc/topt_dense.cu`` (and count it
+    in ``scan_topt_dense.launches``, or in ``counter.launches`` when given)
+    or raise — there is no fallback. For bf16 rows the query goes in as
+    ``bf16_query_planes``: one plane for a bf16 query, the (hi, lo) split
+    of an f32 one."""
     if emb.device.type == "cpu":
         return scan_topt_dense_plain(q, emb, valid_n, tile_n, t_per_tile)
     if emb.device.type != "cuda":
@@ -471,10 +496,12 @@ def scan_topt_dense(q, emb, valid_n: int, tile_n: int, t_per_tile: int, *,
     n_rows = emb.shape[0]
     lib = _kernel_libs()["topt_dense"]
     if emb.dtype == torch.bfloat16:
-        qh, ql = split_hilo_bf16(q)
-        n_tiles = _check_launch(b, d, n_rows, tile_n, (qh, ql, emb))
-        fn, ptrs = lib.topt_dense_bf16_launch, (qh.data_ptr(),
-                                                ql.data_ptr())
+        planes = bf16_query_planes(q)
+        n_tiles = _check_launch(b, d, n_rows, tile_n, (*planes, emb))
+        # a null lo plane selects the one-plane instance
+        fn = lib.topt_dense_bf16_launch
+        ptrs = (planes[0].data_ptr(),
+                planes[1].data_ptr() if len(planes) == 2 else None)
     else:
         n_tiles = _check_launch(b, d, n_rows, tile_n, (q, emb))
         fn, ptrs = lib.topt_dense_f32_launch, (q.data_ptr(),)
@@ -513,7 +540,7 @@ def mips_topk_dense_t(
     valid_n = n if valid_n is None else int(valid_n)
     tile_n, t = scan_geometry(n, k, pool_n, tile_n, t_per_tile)
     cand_s, cand_i = scan_topt_dense(
-        queries.to(torch.float32).contiguous(), emb_rows, valid_n, tile_n, t,
+        dense_query(queries, emb_rows), emb_rows, valid_n, tile_n, t,
         counter=counter)
     cand_s = cand_s.permute(1, 0, 2).reshape(b, -1)
     cand_i = cand_i.permute(1, 0, 2).reshape(b, -1)
@@ -529,7 +556,8 @@ def mips_topk_dense(queries: torch.Tensor, emb_rows: torch.Tensor, k: int,
     (:73-88) is ``_topt_kernel_t``'s function on rows, so on a CUDA tensor
     this launches kernel B3's instance with the valid count N (counted in
     ``mips_topk_dense.launches``); a CPU tensor takes its plain version. A
-    bf16 query splits to lo = 0 and scores exactly bf16 x bf16. The pool
+    bf16 query against bf16 rows is one plane and scores exactly
+    bf16 x bf16 (``dense_query``). The pool
     depth T is ``_pool_t`` over the port's emit tile (256, clamped to
     ``round_up(N, 128)``): exact for k <= T."""
     return mips_topk_dense_t(queries, emb_rows, k, tile_n=tile_n,

@@ -9,8 +9,11 @@ flags, plus ``--device``):
 Flow: load or initialise the model (``--model_path`` may be a checkpoint
 either package wrote); load the index from ``--load_index_path`` or make an
 empty one that the loop builds with the live passage tower; build the
-optimizer; run ``train`` (eval on ``--eval_data`` every ``--eval_freq``
-steps); save the index to ``--save_index_path``. ``--device cuda`` (the
+optimizer, restoring its state from a checkpoint the port saved with
+``--save_optimizer`` (else its update count from the restored step); run
+``train``, which resumes the data where the restored step left it (eval on
+``--eval_data`` every ``--eval_freq`` steps); save the index to
+``--save_index_path``. ``--device cuda`` (the
 default) raises where there is no CUDA; ``--device cpu`` runs every kernel's
 plain version.
 """
@@ -48,7 +51,8 @@ def main(argv=None) -> int:
     opt.dump(os.path.join(opt.checkpoint_dir, opt.name, "options.json"))
     store = PassageStore.from_jsonl(opt.passages) if opt.passages else \
         PassageStore.synthetic(1024, seed=opt.seed)
-    model, params, step = load_or_initialize_model(opt, store)
+    model, params, step, opt_state = load_or_initialize_model(
+        opt, store, with_opt_state=True)
     hidden = model.retriever.cfg.bert.hidden
     if opt.closed_book or opt.use_file_passages:
         index = None  # no retrieval at all: never embed the corpus
@@ -58,7 +62,8 @@ def main(argv=None) -> int:
                            int8r_refine=opt.int8r_refine)
     else:
         index = build_index_for(opt, len(store), hidden, device=opt.device)
-    tx = set_optim(opt, params)
+    tx = set_optim(opt, params, opt_state, step)
+    del opt_state
     step = train(model, index, params, tx, opt, step=step,
                  evaluate_fn=evaluate)
     if opt.save_index_path and index is not None:

@@ -10,19 +10,25 @@ alone under ``bge_<tower>_Embedding_Ret/step-N`` with a ``lastest`` (sic)
 symlink (train.py:335-372). Writes can queue on one background thread
 (``block=False``): the host copy happens on the caller's thread, the disk
 IO in submission order; ``wait_for_writes`` joins it and re-raises a failed
-write. Saving the optimizer state (``--save_optimizer``) is ROADMAP queue A
-item 9.
+write. With ``--save_optimizer`` the state also holds ``opt_state``: the
+port's ``AdamW.state_dict()`` (plain dicts of numpy arrays and ints, which
+the JAX package's ``load_checkpoint`` reads too).
 
 Leaves stored in float32 or float16 load; a tree saved under
 ``--param_dtype bfloat16`` holds ml_dtypes bf16 arrays, which need the
 ml_dtypes package to unpickle and which the port does not carry — loading
-one raises. Only load checkpoints this project wrote: unpickling runs code.
+one raises. A JAX checkpoint saved with ``--save_optimizer`` pickles its
+``opt_state`` as optax (and jax) classes; ``load_checkpoint`` unpickles
+those as inert stand-ins and drops ``opt_state``, so its step and params
+load where neither package is installed. Only load checkpoints this project
+wrote: unpickling runs code.
 """
 
 from __future__ import annotations
 
 import collections
 import json
+import logging
 import os
 import pickle
 import threading
@@ -30,6 +36,8 @@ from typing import Any
 
 from ..convert import params_to_numpy, retriever_params_to_numpy
 from ..data.tokenizer import SimpleTokenizer
+
+logger = logging.getLogger(__name__)
 
 
 class _AsyncWriter:
@@ -112,15 +120,14 @@ def save_checkpoint(path: str, name: str, step: int, params: dict,
                     tokenizer: Any = None, retriever_tokenizer: Any = None,
                     block: bool = True) -> str:
     """Write ``<path>/<name>/step-<step>`` and repoint ``latest``; returns
-    the step dir. The host copy of ``params`` is taken here; with
-    ``block=False`` the disk IO queues on the background writer."""
-    if opt_state is not None:
-        raise NotImplementedError(
-            "saving the optimizer state (--save_optimizer) is not ported "
-            "yet: ROADMAP queue A item 9")
+    the step dir. The host copy of ``params`` (and of ``opt_state``, an
+    ``AdamW.state_dict()``) is taken here; with ``block=False`` the disk IO
+    queues on the background writer."""
     run_dir = os.path.join(path, name)
     step_dir = os.path.join(run_dir, f"step-{step}")
     state = {"step": step, "params": params_to_numpy(params)}
+    if opt_state is not None:
+        state["opt_state"] = opt_state
 
     def write():
         os.makedirs(step_dir, exist_ok=True)
@@ -206,17 +213,51 @@ def _check_leaves(tree, where="params"):
                         "leaves only")
 
 
+class _Inert:
+    """What a JAX checkpoint's optax / jax class unpickles to: it takes any
+    constructor arguments and state and does nothing with them."""
+
+    def __init__(self, *args, **kwargs):
+        self.args = args
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+def _stand_in(module: str, name: str) -> type:
+    return type(name, (_Inert,), {"__module__": module})
+
+
+class _Unpickler(pickle.Unpickler):
+    """Unpickles optax's and jax's classes (a JAX ``opt_state``) as inert
+    stand-ins, so a checkpoint's step and params load where neither package
+    can be imported; every other class resolves as ``pickle`` would."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] in ("optax", "jax", "jaxlib", "chex"):
+            return _stand_in(module, name)
+        return super().find_class(module, name)
+
+
 def load_checkpoint(path: str) -> dict:
     """``path`` may be a step dir or a run dir (follows ``latest``).
-    Returns ``{"step", "params", ...}`` with numpy leaves."""
+    Returns ``{"step", "params", ...}`` with numpy leaves; an
+    ``opt_state`` in the JAX package's optax form is dropped (logged), the
+    port's own form is kept for ``set_optim``."""
     path = os.path.join(_resolve(path), "state.pkl")
     try:
         with open(path, "rb") as f:
-            state = pickle.load(f)
+            state = _Unpickler(f).load()
     except ModuleNotFoundError as err:
         raise TypeError(
             f"{path} needs module {err.name!r} to unpickle — a bfloat16 "
             "(ml_dtypes) tree from --param_dtype bfloat16; re-save it in "
             "float32 to evaluate it in the port") from err
     _check_leaves(state["params"])
+    opt_state = state.get("opt_state")
+    if opt_state is not None and not (
+            isinstance(opt_state, dict) and "format" in opt_state):
+        del state["opt_state"]
+        logger.info("dropped the JAX package's optax opt_state of %s: the "
+                    "port restores only its own optimizer state", path)
     return state

@@ -16,8 +16,15 @@ next batch's candidates with the pre-step params before the step; a
 prefetch made against rows that a rebuild or swap has since replaced is
 dropped and retrieved again (``index_version``).
 
-Not ported yet: ``--profile_steps`` (ROADMAP queue A item 15),
-``--save_optimizer`` (item 9).
+A run that starts at a restored step skips the batches the steps before it
+took (the same per-epoch shuffles), so a resume sees the data an
+uninterrupted run would; with ``--save_optimizer`` every checkpoint holds
+the optimizer's state (``AdamW.state_dict``). Both are deliberate
+differences from the JAX package, whose resume replays the data from the
+first batch with a fresh optimizer. The step's random generators restart
+from ``--seed``.
+
+Not ported yet: ``--profile_steps`` (ROADMAP queue A item 15).
 """
 
 from __future__ import annotations
@@ -48,10 +55,9 @@ def train_mode_of(opt: Options) -> str:
 
 
 def _check_ported(opt: Options) -> None:
-    for flag, item in (("profile_steps", 15), ("save_optimizer", 9)):
-        if getattr(opt, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet: ROADMAP queue A item {item}")
+    if opt.profile_steps:
+        raise NotImplementedError(
+            "--profile_steps is not ported yet: ROADMAP queue A item 15")
 
 
 def train(model, index, params: dict, tx: AdamW, opt: Options,
@@ -104,6 +110,10 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
         index_version = 0
         pending: list = []  # (iter_stats, loss, aux, weight), on the device
         last_loss = float("nan")
+        to_skip = step  # batches the restored steps already took
+
+        def opt_state():
+            return tx.state_dict() if opt.save_optimizer else None
 
         def drain_pending() -> float:
             nonlocal last_loss
@@ -129,6 +139,8 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                 shuffle_buffer_size=opt.shuffle_buffer_size,
                 shuffle_seed=opt.seed * 1_000_003 + epoch * 9_973)
             batches_it = iter(batches)
+            while to_skip > 0 and next(batches_it, None) is not None:
+                to_skip -= 1
             batch = next(batches_it, None)
             prefetched = None  # (retrieval ctx of `batch`, index_version)
             while batch is not None:
@@ -240,7 +252,8 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                                      tokenizer=model.retriever_tokenizer,
                                      block=False)
                     save_checkpoint(opt.checkpoint_dir, opt.name, step,
-                                    params, options=opt,
+                                    params, opt_state=opt_state(),
+                                    options=opt,
                                     tokenizer=model.generator_tokenizer,
                                     retriever_tokenizer=model
                                     .retriever_tokenizer, block=False)
@@ -251,7 +264,8 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                     if step % opt.save_freq != 0:
                         save_checkpoint(
                             opt.checkpoint_dir, opt.name, step, params,
-                            options=opt, tokenizer=model.generator_tokenizer,
+                            opt_state=opt_state(), options=opt,
+                            tokenizer=model.generator_tokenizer,
                             retriever_tokenizer=model.retriever_tokenizer)
                     logger.info("preemption checkpoint saved at step %d",
                                 step)

@@ -22,9 +22,21 @@ trained weights:
   per ``accumulation_steps`` micro-steps, the clip acting on their mean.
 
 Optimizer state is float32 (``param_dtype=bfloat16`` is not ported).
+
+Resume (a deliberate difference from the JAX package, which builds a fresh
+state on every start and so reruns the warmup from count 0 with zero
+moments): ``state_dict`` is the update count, the accumulation window's
+position, and mu, nu and the pending accumulator per leaf, as numpy arrays
+keyed by the leaf's tree path ("retriever/query/layers/0/q_w"); a
+checkpoint written with ``--save_optimizer`` carries it as ``opt_state``
+and ``set_optim`` restores it. Without it (an older checkpoint, or one the
+JAX package wrote, whose optax state the port does not read) the count
+starts at the restored step's updates and the moments at zero.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -32,6 +44,10 @@ from torch import nn
 
 from ..config import Options
 from ..utils.schedulers import make_lr_schedule
+
+logger = logging.getLogger(__name__)
+
+OPT_STATE_FORMAT = "jsa_rag_tpu_torch.AdamW/1"
 
 
 def named_leaves(params: dict) -> dict[tuple, torch.Tensor]:
@@ -118,6 +134,57 @@ class AdamW:
                    for t, lab in zip(self.leaves, self.labels)]
         self.acc = ([None] * len(self.leaves)) if self.k > 1 else None
 
+    def state_dict(self) -> dict:
+        """The state as plain Python and numpy: ``count``, ``mini_step``,
+        and ``mu``/``nu`` for every trained leaf and ``acc`` for every leaf
+        with a pending accumulation, each ``{tree path: array}``."""
+        def host(ts):  # copies: the moments change in place
+            return {"/".join(p): t.detach().to("cpu", copy=True).numpy()
+                    for p, t in zip(self.paths, ts) if t is not None}
+
+        return {"format": OPT_STATE_FORMAT, "count": int(self.count),
+                "mini_step": int(self.mini_step),
+                "accumulation_steps": int(self.k),
+                "mu": host(self.mu), "nu": host(self.nu),
+                "acc": host(self.acc) if self.acc is not None else {}}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict``'s output onto this optimizer's leaves
+        (copied onto their device). A trained leaf the state lacks keeps
+        zero moments, with a log line; a moment of another shape, or a
+        state of another accumulation window, raises ``ValueError``."""
+        if state.get("format") != OPT_STATE_FORMAT:
+            raise ValueError(f"not a {OPT_STATE_FORMAT} state")
+        if int(state["accumulation_steps"]) != self.k:
+            raise ValueError(
+                f"optimizer state accumulates {state['accumulation_steps']} "
+                f"micro-steps, this run {self.k}")
+        missing = []
+        for i, (path, lab) in enumerate(zip(self.paths, self.labels)):
+            key = "/".join(path)
+            for name in ("mu", "nu", "acc"):
+                ts = getattr(self, name)
+                if ts is None or (name != "acc" and lab == "frozen"):
+                    continue
+                arr = state[name].get(key)
+                if arr is None:
+                    if name != "acc":
+                        missing.append(key)
+                    continue
+                if tuple(arr.shape) != tuple(self.leaves[i].shape):
+                    raise ValueError(
+                        f"optimizer state {name}[{key}] has shape "
+                        f"{tuple(arr.shape)}, the leaf "
+                        f"{tuple(self.leaves[i].shape)}")
+                ts[i] = torch.from_numpy(np.array(arr)).to(
+                    self.leaves[i].device, self.leaves[i].dtype)
+        if missing:
+            logger.info("optimizer state has no moments for %d trained "
+                        "leaves (%s, ...): they start at zero",
+                        len(set(missing)), missing[0])
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+
     def lr(self, label: str, count: int | None = None) -> float:
         """The step size a group's update at ``count`` uses (default: the
         next update's)."""
@@ -178,10 +245,25 @@ class AdamW:
         self.count = count_inc
 
 
-def set_optim(opt: Options, params: dict) -> AdamW:
+def set_optim(opt: Options, params: dict, opt_state=None,
+              step: int = 0) -> AdamW:
     """The optimizer over every leaf of ``params``; leaves that take no
-    gradient (the LoRA-frozen generator base) stop requiring one."""
+    gradient (the LoRA-frozen generator base) stop requiring one. On a
+    resume at ``step``: ``opt_state`` in the port's form (``state_dict``)
+    is restored; otherwise the update count starts at ``step //
+    accumulation_steps`` (the loop takes one micro-step a step and
+    ``AdamW.step`` closes a window every ``accumulation_steps``), so the LR
+    schedule goes on where the run stopped, with zero moments."""
     tx = AdamW(opt, params)
+    if isinstance(opt_state, dict) and \
+            opt_state.get("format") == OPT_STATE_FORMAT:
+        tx.load_state_dict(opt_state)
+        logger.info("restored the optimizer state at update %d", tx.count)
+    elif step > 0:
+        tx.count = step // tx.k
+        logger.info("no optimizer state in the checkpoint: update count %d "
+                    "from step %d, Adam moments start at zero", tx.count,
+                    step)
     for t, path, lab in zip(tx.leaves, tx.paths, tx.labels):
         if path[0] == "generator" and lab == "frozen":
             t.requires_grad_(False)

@@ -69,6 +69,46 @@ def test_bench_pallas_is_exact_over_the_stored_rows():
     assert bench.recall_at(ids, oracle, 100) == 1.0
 
 
+@pytest.mark.parametrize("index_dtype", ["int8r", "int8", "hybrid",
+                                         "float16", "bfloat16", "float32"])
+def test_every_index_dtype_has_a_default_method(index_dtype, capsys):
+    """``default_method`` names a method of ``methods()`` for every
+    ``--index_dtype`` (``int8`` maps to ``int8t``, which the JAX bench
+    names but does not define), and the bench runs it."""
+    from jsa_rag_tpu_torch.config import Options
+    from jsa_rag_tpu_torch.index.flat import STORAGES
+
+    assert index_dtype in STORAGES
+    method = bench.default_method(Options(index_dtype=index_dtype))
+    assert method in bench.methods(1, 1)
+    if index_dtype == "int8":
+        res = bench.main([*TINY, "--index_dtype", "int8"])
+        assert res["method"] == "int8t" and res["recall@100"] >= 0.99
+        capsys.readouterr()
+
+
+def test_int8t_matches_jax_int8_search():
+    """The bench's ``int8t`` (the plain int8 search over the int8 store,
+    kernel B2 on the card) against the JAX package's
+    ``mips_topk_pallas2_int8_t`` at refine 0 (Pallas interpret mode) on the
+    bench's corpus recipe, both at 256-row tiles and the same T: the same
+    ids, scores within 1e-5 relative (the same f32 dequant products)."""
+    n, d, b, k = 4096, 64, 16, 100
+    cpu = torch.device("cpu")
+    e = bench.seeded_rows(bench.unit_gaussian(d, cpu), n, d, 0, cpu)
+    q = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (b, d)).astype(np.float32))
+    v, s = jp2.quantize_int8(jnp.asarray(e.numpy()))
+    js, jids = jp2.mips_topk_pallas2_int8_t(
+        jnp.asarray(q.numpy()), v.T, s.reshape(1, -1), k, tile_n=256,
+        t_per_tile=4, valid_n=n, pool_n=n, refine=0, interpret=True)
+    storage, search = bench.methods(n, k)["int8t"]
+    ts, ids = search(q, bench.build_index(storage, e))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("refine", ["rows", "rows1"])
 def test_int8r_recall_on_the_bench_corpus_matches_jax(refine):
     """The bench's ``int8r`` and ``int8r_rows1`` searches against the JAX
@@ -107,7 +147,7 @@ def test_bench_refuses_approx_and_cuda_without_a_card():
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
         bench.main([*TINY, "--method", "approx"])
     with pytest.raises(ValueError, match="unknown bench method"):
-        bench.main([*TINY, "--method", "int8t"])
+        bench.main([*TINY, "--method", "int4t"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             bench.main(TINY[2:])  # the default device is cuda

@@ -22,6 +22,9 @@ scores the f32 query split into two fp16 planes (<= 2^-22 * sum|q_i x_i|
 left) against the plain version's f32 product. Both agree to 1e-5 of
 |q|·|x| (the effective query's norm times the row's), the bound for unit
 rows at d = 1024, and ids as for B3.
+The 16-bit kernels (B3-B7, B9) score on wgmma: a bf16 query is one plane;
+an f32 query's hi and lo planes accumulate into one f32 sum (each product
+exact, the order of the sums moved), within the same bounds.
 B6, B7 and B8 (the row-major wrappers over B3's, B5's and B2's instances)
 and B9 (the exact streaming top-k, B3's scoring core): the final top-k on
 the card against the CPU path (the plain versions): sorted scores within
@@ -439,6 +442,9 @@ def _assert_topk_close(q, emb, ks, ki, ps, pi, rtol):
     ("bfloat16", 8, 20_000, 1024, 100),
     ("float32", 5, 4099, 256, 1000),             # qpb sized from k
     ("float32", 5, 4099, 256, 4099),             # k = N
+    ("bfloat16", 5, 4099, 256, 1000),            # k = 1,000: lists in the output
+    ("bfloat16", 130, 9000, 256, 239),           # the last k of shared lists
+    ("bfloat16", 5, 4099, 256, 4099),            # k = N
     ("bfloat16", 40, 1000, 64, 300),             # slices shorter than k
 ])
 def test_stream_kernel_matches_plain(cuda, dtype, b, n, d, k):
@@ -473,15 +479,82 @@ def test_stream_kernel_tied_rows(cuda, dtype):
 
 @pytest.mark.cuda
 def test_stream_kernel_refuses_k_above_its_limit(cuda):
-    fixed, most = tstream.stream_smem(torch.bfloat16)
-    limit = (most - fixed) // 8
+    """The lists live in the output rows, so the limit is the source's
+    K_MAX, not shared memory; the limit itself runs."""
+    lib = tp2._kernel_libs()["mips_stream"]
+    limit = tstream.STREAM_K_MAX
+    assert lib.mips_stream_k_max() == limit
     emb = torch.zeros((limit + 1, 16), dtype=torch.bfloat16, device=cuda)
     q = torch.ones((1, 16), device=cuda)
     with pytest.raises(ValueError, match=str(limit)):
         tstream.mips_topk_stream(q, emb, limit + 1)
-    s, i = tstream.mips_topk_stream(q, emb, limit)  # the limit itself runs
+    s, i = tstream.mips_topk_stream(q, emb, limit)
     torch.cuda.synchronize()
     assert len(set(i[0].tolist())) == limit
+
+
+@pytest.mark.cuda
+def test_stream_smem_mirrors_the_library(cuda):
+    """``stream_smem`` and ``stream_qpb`` (pure Python) equal what
+    ``csrc/mips_stream.cu`` lays out and launches."""
+    lib = tp2._kernel_libs()["mips_stream"]
+    for planes in (1, 2):
+        for k in (1, 100, 175, 176, 239, 240, 1000, 32_768):
+            for b in (1, 8, 64, 128, 512):
+                assert lib.mips_stream_smem(0, planes, k, b) == \
+                    tstream.stream_smem(torch.bfloat16, planes, k, b), (
+                        planes, k, b)
+    assert lib.mips_stream_smem(1, 1, 100, 8) == tstream.stream_smem(
+        torch.float32)
+    assert lib.mips_stream_qpb(0) == tstream.stream_qpb(torch.bfloat16)
+    assert lib.mips_stream_qpb(1) == tstream.stream_qpb(torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b", [1, 8, 64, 257, 512])
+def test_stream_kernel_batch_sizes(cuda, qdtype, b):
+    """B9 at every batch size of the persistent core's query tiles (257 and
+    512 end in a partial or full last tile of 128), on a bf16 query (one
+    plane) and an f32 one (the hi/lo split into one accumulator)."""
+    g = torch.Generator(device=cuda).manual_seed(b + 3)
+    emb = _unit(g, (20_000, 1024), cuda).to(torch.bfloat16)
+    q = _unit(g, (b, 1024), cuda).to(getattr(torch, qdtype))
+    ks, ki = tstream.mips_topk_stream(q, emb, 100)
+    torch.cuda.synchronize()
+    ps, pi = tstream.mips_topk_stream_plain(q.cpu(), emb.cpu(), 100)
+    _assert_topk_close(q, emb, ks, ki, ps, pi, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b", [1, 8, 64, 257, 512])
+def test_dense_kernel_batch_sizes(cuda, qdtype, b):
+    """B3 (B6's instance) at every batch size of the persistent core's
+    query tiles, valid_n < N and a ragged last tile, on a bf16 query (one
+    plane; the plain version widens it exactly) and an f32 one."""
+    g = torch.Generator(device=cuda).manual_seed(b + 5)
+    n, nv = 20_000 - 37, 19_990 - 37
+    emb = _unit(g, (n, 1024), cuda).to(torch.bfloat16)
+    q = _unit(g, (b, 1024), cuda).to(getattr(torch, qdtype))
+    t = tp2._pool_t(100, nv, 256, 4)
+    ks, ki = tp2.scan_topt_dense(q, emb, nv, 256, t)
+    ps, pi = tp2.scan_topt_dense_plain(q, emb, nv, 256, t)
+    torch.cuda.synchronize()
+    assert ks.shape == (-(-n // 256), b, t) and int(ki.max()) < nv
+    _assert_dense_close(q.float(), emb, ks, ki, ps, pi, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f16h", "f16"])
+@pytest.mark.parametrize("b", [1, 8, 64, 257, 512])
+def test_f16_kernel_batch_sizes(cuda, kind, b):
+    """B4 and B5 at every batch size of the persistent core's query tiles
+    (128 queries a unit for B4, 64 for B5's two accumulators)."""
+    g = torch.Generator(device=cuda).manual_seed(b + 7 + len(kind))
+    emb, q = _f16_case(g, b, 20_000 - 37, 1024, cuda)
+    nv = 19_990 - 37
+    _run_f16(kind, q, emb, nv, 256, tp2._pool_t(100, nv, 256, 4))
 
 
 @pytest.mark.cuda

@@ -121,34 +121,97 @@ def test_stream_duplicate_scores():
         assert len(set(row)) == len(row)
 
 
-# csrc/mips_stream.cu's shared-memory layout on sm_90 (on the card the
-# wrapper reads it from the library, ``mips_stream.stream_smem``): the bytes
-# a block takes besides its lists for bf16 and f32 rows, and a block's most
-SMEM_BF16, SMEM_F32, SMEM_MAX = 92_160 + 384, 37_120 + 384, 232_448
-
-
 def test_stream_k_above_n_and_geometry():
-    """k = min(k, n), every row once; the kernel's geometry sizes its query
-    tile from k and refuses a k whose one-query list cannot fit."""
+    """k = min(k, n), every row once; the kernel's geometry: 128 queries a
+    block on bf16 rows (32 on f32 rows), shared memory that no longer grows
+    with k, slices that fill the SMs once, and a k above the limit
+    refused."""
     q, e = _data(2, 50, 16, seed=4)
     ts, ti = tstream.mips_topk_stream(_t(q), _t(e), 80)
     assert ts.shape == (2, 50)
     assert all(sorted(r) == list(range(50)) for r in ti.tolist())
 
-    def geo(b, n, k, fixed):
-        return tstream.stream_geometry(b, n, k, fixed, SMEM_MAX, 132)
+    bf, f32 = torch.bfloat16, torch.float32
+    # csrc/mips_stream.cu's layout (the card tests compare with the
+    # library's mips_stream_smem): 4 stages of 48 KB, or 3 of 64 KB with
+    # two planes, barriers, row buffers, row state, alignment slack
+    # the scores of the lists of k slots of min(b, 128) queries in shared
+    # memory where a ring of two stages still fits beside them (the ring
+    # then takes what is left, at most 8 stages), else in the output beside
+    # 4 stages of 48 KB (3 of 64 KB with two planes)
+    fixed = 1024 + 8192 + 1536 + 1024
+    assert tstream.stream_smem(bf, 1, 100, 512) == (fixed + 3 * 49_152
+                                                    + 128 * 100 * 4)
+    assert tstream.stream_smem(bf, 1, 100, 8) == (fixed + 4 * 49_152
+                                                  + 8 * 100 * 4)
+    assert tstream.stream_smem(bf, 1, 239, 512) == 232_448
+    assert tstream.stream_smem(bf, 1, 240, 512) == fixed + 4 * 49_152
+    assert tstream.stream_smem(bf, 2, 200, 512) == fixed + 3 * 65_536
+    assert tstream.stream_smem(bf, 2, 160, 512) == (fixed + 2 * 65_536
+                                                    + 128 * 160 * 4)
+    assert tstream.stream_smem(f32) == 37_120 + 384
+    assert max(tstream.stream_smem(bf, p, k, b) for p in (1, 2)
+               for k in (1, 100, 175, 176, 239, 240, 32_768)
+               for b in (1, 8, 64, 128, 512)) <= 232_448
 
-    assert geo(512, 1_300_000, 100, SMEM_BF16)[0] == 32
-    qpb, slices, tps = geo(5, 4099, 1000, SMEM_F32)
-    assert qpb == 24 and slices * tps >= 17 and slices == 17
-    assert geo(5, 4099, 4099, SMEM_F32)[0] == 5
-    qpb, slices, tps = geo(64, 262_144 - 777, 100, SMEM_BF16)
-    assert 2 * slices <= 132 and (slices - 1) * tps < 1024 <= slices * tps
-    limit = (SMEM_MAX - SMEM_BF16) // 8
-    assert limit == 17_488
-    assert geo(1, 10 ** 6, limit, SMEM_BF16)[0] == 1
-    with pytest.raises(ValueError, match=str(limit)):
-        geo(1, 10 ** 6, limit + 1, SMEM_BF16)
+    def geo(b, n, k, dtype, planes=1):
+        return tstream.stream_geometry(
+            b, n, k, tstream.stream_qpb(dtype),
+            tstream.stream_smem(dtype, planes, k, b), 132)
+
+    assert geo(512, 1_300_000, 100, bf) == (128, 33, 154)
+    assert geo(8, 1_300_000, 100, bf) == (128, 131, 39)
+    assert geo(512, 1_300_000, 100, bf, 2) == geo(512, 1_300_000, 100, bf)
+    # the query order: within each tile of 128, query i at 16 * (i % 8) +
+    # i // 8, so eight consecutive queries fall on eight warps of 16 rows
+    for b in (1, 8, 128, 130):
+        src = tstream.stream_rows(b, "cpu")
+        assert src.shape == (-(-b // 128) * 128,)
+        assert sorted(src[src >= 0].tolist()) == list(range(b))
+        pos = {int(r): p for p, r in enumerate(src.tolist()) if r >= 0}
+        assert len({pos[i] // 16 for i in range(min(b, 8))}) == min(b, 8)
+        assert all(pos[i] // 128 == i // 128 for i in range(b))
+    qpb, slices, tps = geo(5, 4099, 1000, f32)
+    assert qpb == 32 and slices * tps >= 17 and slices == 17
+    qpb, slices, tps = geo(64, 262_144 - 777, 100, bf)
+    assert slices <= 132 and (slices - 1) * tps < 1024 <= slices * tps
+    limit = tstream.STREAM_K_MAX
+    assert limit == 32_768 and geo(1, 10 ** 6, limit, bf)[0] == 128
+    for dtype in (bf, f32):
+        with pytest.raises(ValueError, match=str(limit)):
+            geo(1, 10 ** 6, limit + 1, dtype)
+    # pure functions of their arguments: the same answer twice, none
+    # depending on k below the limit
+    assert geo(3, 5000, 7, bf) == geo(3, 5000, 7, bf) == geo(3, 5000, 700,
+                                                             bf)
+
+
+def test_bf16_query_takes_one_plane_by_dtype():
+    """The one-plane rule of the 16-bit kernels: against bf16 rows a bf16
+    query is its own single plane and an f32 one its (hi, lo) split,
+    chosen by dtype alone (``bf16_query_planes``, ``dense_query``); the
+    plain versions score a bf16 query as its exact f32 widening, so the
+    bf16 and the widened query give the same scores and ids (B3, B6,
+    B9)."""
+    q, e = _data(5, 600, 64, seed=11)
+    qb, rows = _t(q).to(torch.bfloat16), _t(e).to(torch.bfloat16)
+    (plane,) = tp2.bf16_query_planes(qb)
+    assert plane is qb
+    hi, lo = tp2.bf16_query_planes(qb.float())
+    assert torch.equal(hi, qb) and not bool(lo.any())  # a zero lo plane
+    assert tp2.dense_query(qb, rows).dtype == torch.bfloat16
+    assert tp2.dense_query(qb, rows.float()).dtype == torch.float32
+    assert tp2.dense_query(qb.float(), rows).dtype == torch.float32
+    for a, b in zip(tp2.scan_topt_dense_plain(qb, rows, 590, 256, 8),
+                    tp2.scan_topt_dense_plain(qb.float(), rows, 590, 256, 8)):
+        assert torch.equal(a, b)
+    for fn in (tp2.mips_topk_dense, tstream.mips_topk_stream,
+               lambda q_, r_, k_: tp2.mips_topk_dense_t(q_, r_, k_,
+                                                        valid_n=590)):
+        for a, b in zip(fn(qb, rows, 50), fn(qb.float(), rows, 50)):
+            assert torch.equal(a, b)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tp2.scan_topt_dense_plain(qb, rows.float(), 600, 256, 8)
 
 
 # ---------------------------------------------------------------- B6

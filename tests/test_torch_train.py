@@ -210,8 +210,8 @@ def _data(tmp_path, n_passages=48, n_train=8):
     return str(out / "train.jsonl"), str(out / "passages.jsonl")
 
 
-def _kw(tmp_path, index_dtype="int8r", **over):
-    train, passages = _data(tmp_path)
+def _kw(tmp_path, index_dtype="int8r", n_train=8, **over):
+    train, passages = _data(tmp_path, n_train=n_train)
     kw = dict(name="run", checkpoint_dir=str(tmp_path / "ck"), task="qa",
               qa_prompt_format="{question}", gold_score_mode="jsa",
               train_data=[train], passages=[passages], model_size="tiny",
@@ -435,8 +435,16 @@ def test_checkpoint_loads_across_packages(tmp_path):
     np.testing.assert_array_equal(q["layers"][0]["q_w"],
                                   jflat[("retriever", "query", "layers", "0",
                                          "q_w")])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tckpt.save_checkpoint(str(tmp_path), "x", 1, tparams, opt_state={})
+    # the optimizer's state rides along (--save_optimizer) and loads in
+    # the JAX package's loader as plain dicts and arrays
+    tx = toptim.set_optim(topt, tparams)
+    tckpt.save_checkpoint(str(tmp_path), "x", 1, tparams,
+                          opt_state=tx.state_dict())
+    got = jckpt.load_checkpoint(str(tmp_path / "x"))["opt_state"]
+    assert got["count"] == 0 and set(got["mu"]) == set(got["nu"])
+    key = "retriever/query/layers/0/q_w"
+    assert got["mu"][key].shape == tparams["retriever"].query.layers[0] \
+        .q_w.shape
 
 
 def test_make_posterior_copies_or_shares():
@@ -538,3 +546,148 @@ def test_train_cli_runs_and_defaults_to_cuda(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tmain(argv)
+
+
+# ---------------------------------------------------------------- resume
+@pytest.mark.parametrize("accumulation", [1, 2])
+def test_resume_matches_uninterrupted_runs(tmp_path, monkeypatch,
+                                           accumulation):
+    """Three jsa steps saved with ``--save_optimizer``, then a resume from
+    that checkpoint (``load_or_initialize_model`` -> ``set_optim``) for
+    three more: the final params equal six uninterrupted steps of the port,
+    leaf by leaf, and of the JAX loop with its MIS draws replayed (1e-5, as
+    the three-step loop). Epochs of 4 batches, so the resume skips into the
+    first epoch and crosses into the second; at accumulation 2 the save
+    falls inside an accumulation window."""
+    (jopt, mesh, jmodel, jparams, jindex, path, topt, tmodel, tparams,
+     tindex, init) = _pair(tmp_path, n_train=4, total_steps=6,
+                           log_detail_num=6,
+                           accumulation_steps=accumulation)
+    jopt.load_index_path = path
+    jparams, specs = jstep.setup_params(jopt, jparams, mesh)
+    jtx, _ = joptim.set_optim(jopt, jparams)
+    state = jstep.init_opt_state(jtx, jparams, specs, mesh)
+    jparams, _, jsteps = jloop.train(jmodel, jindex, jparams, jtx, state,
+                                     jopt, mesh=mesh)
+    assert jsteps == 6
+    draws = []
+    for s in range(1, 7):
+        with open(tmp_path / "ck" / "run" / f"training_info_step{s}.json") as f:
+            info = json.load(f)
+        draws.append((np.asarray(info["debug/proposal_ids"], np.int64),
+                      np.asarray(info["debug/uniform_draws"], np.float32)))
+    queue = []
+
+    def replay(gen, post, n):
+        p, u = queue.pop(0)
+        assert len(p) == n and post.shape[0] == 1
+        return torch.from_numpy(p[:, None]), torch.from_numpy(u[:, None])
+
+    monkeypatch.setattr(tmodes, "draw_mis", replay)
+    _share_vocab(jmodel, tmodel)
+    topt.load_index_path = path
+
+    def run(name, total, params, model, tx, step=0, **flags):
+        o = tconfig.Options(**{**vars(topt), "name": name,
+                               "total_steps": total, **flags})
+        index = load_index(path, device="cpu", refine_r=o.refine_r,
+                           int8r_refine=o.int8r_refine)
+        return tloop.train(model, index, params, tx, o, step=step)
+
+    # six uninterrupted steps
+    queue[:] = draws
+    full = convert.params_from_numpy(init, tmodel.retriever.cfg)
+    assert run("full", 6, full, tmodel, toptim.set_optim(topt, full)) == 6
+    # three steps, saved with the optimizer's state at step 3
+    queue[:] = draws[:3]
+    part = convert.params_from_numpy(init, tmodel.retriever.cfg)
+    assert run("part", 3, part, tmodel, toptim.set_optim(topt, part),
+               save_freq=3, save_optimizer=True) == 3
+    assert not queue
+    # the resume: model, params and optimizer state from the checkpoint
+    ropt = tconfig.Options(**{**vars(topt), "name": "part",
+                              "model_path": str(tmp_path / "ck" / "part")})
+    rmodel, rparams, step, ostate = tmodel_io.load_or_initialize_model(
+        ropt, TStore.from_jsonl(ropt.passages), with_opt_state=True)
+    assert step == 3 and ostate["count"] == 3 // accumulation
+    assert ostate["mini_step"] == 3 % accumulation
+    assert bool(ostate["acc"]) == (accumulation == 2)
+    rtx = toptim.set_optim(ropt, rparams, ostate, step)
+    queue[:] = draws[3:]
+    assert run("part", 6, rparams, rmodel, rtx, step=step) == 6
+    assert not queue and rtx.count == 6 // accumulation
+
+    got = _flat(convert.params_to_numpy(rparams))
+    ref = _flat(convert.params_to_numpy(full))
+    want = _flat(jax.tree_util.tree_map(np.asarray, jparams))
+    assert set(got) == set(ref) == set(want)
+    for p in want:
+        np.testing.assert_allclose(got[p], ref[p], rtol=0, atol=1e-6,
+                                   err_msg=str(p))
+        np.testing.assert_allclose(got[p], want[p], rtol=0, atol=1e-5,
+                                   err_msg=str(p))
+
+
+def test_resume_without_opt_state_starts_the_schedule_at_the_step():
+    """A checkpoint with no optimizer state of the port (none, or the JAX
+    package's optax one): the update count is the restored step's updates
+    (the loop takes one micro-step a step), so the LR schedule goes on from
+    there with zero moments; the port's own state restores its count."""
+    opt = tconfig.Options(device="cpu", model_size="tiny", max_vocab=300,
+                          warmup_steps=4, total_steps=20,
+                          accumulation_steps=2, scheduler="linear")
+    _, params, _ = tmodel_io.load_or_initialize_model(opt,
+                                                      TStore.synthetic(8))
+    tx = toptim.set_optim(opt, params, None, step=7)
+    assert tx.count == 3 and tx.mini_step == 0
+    fresh = toptim.set_optim(opt, params)
+    assert tx.lr("lm") == fresh.lr("lm", 3) != fresh.lr("lm")
+    assert all(float(m.abs().max()) == 0 for m in tx.mu if m is not None)
+    jax_form = {"inner_opt_state": (), "mini_step": 1}  # not the port's
+    assert toptim.set_optim(opt, params, jax_form, step=9).count == 4
+    tx.count, tx.mini_step = 5, 1
+    again = toptim.set_optim(opt, params, tx.state_dict(), step=11)
+    assert (again.count, again.mini_step) == (5, 1)
+    with pytest.raises(ValueError, match="accumulates"):
+        toptim.AdamW(tconfig.Options(**{**vars(opt),
+                                        "accumulation_steps": 1}),
+                     params).load_state_dict(tx.state_dict())
+
+
+_LOAD_WITHOUT_JAX = """
+import sys
+for name in ("jax", "jaxlib", "optax", "chex", "ml_dtypes"):
+    sys.modules[name] = None
+from jsa_rag_tpu_torch.train import checkpoint
+state = checkpoint.load_checkpoint(sys.argv[1])
+assert "opt_state" not in state, sorted(state)
+leaf = state["params"]["retriever"]["query"]["layers"][0]["q_w"]
+print(state["step"], leaf.shape[0], leaf.dtype)
+"""
+
+
+def test_jax_checkpoint_with_optax_state_loads_without_jax(tmp_path):
+    """A JAX ``state.pkl`` written with ``--save_optimizer`` pickles optax
+    classes; in a process where jax and optax cannot be imported the port
+    loads its step and params (the optax state dropped)."""
+    import subprocess
+    import sys
+
+    jopt = jconfig.Options(model_size="tiny", max_vocab=300,
+                           gold_score_mode="jsa")
+    _, jparams, _ = jmodel_io.load_or_initialize_model(jopt,
+                                                       JStore.synthetic(8))
+    mesh = make_mesh(n_data=1, n_index=1, devices=jax.devices()[:1])
+    jparams, specs = jstep.setup_params(jopt, jparams, mesh)
+    jtx, _ = joptim.set_optim(jopt, jparams)
+    state = jstep.init_opt_state(jtx, jparams, specs, mesh)
+    jckpt.save_checkpoint(str(tmp_path), "jax", 12, jparams, opt_state=state)
+    with open(tmp_path / "jax" / "latest" / "state.pkl", "rb") as f:
+        assert b"optax" in f.read()
+    out = subprocess.run(
+        [sys.executable, "-c", _LOAD_WITHOUT_JAX, str(tmp_path / "jax")],
+        capture_output=True, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    hidden = jparams["retriever"]["query"]["layers"][0]["q_w"].shape[0]
+    assert out.stdout.split() == ["12", str(hidden), "float32"]
