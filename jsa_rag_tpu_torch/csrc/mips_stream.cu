@@ -362,7 +362,8 @@ mips_stream_bf16_kernel(const __grid_constant__ CUtensorMap mq0,
   const int n_k = (d + wgs::KC - 1) / wgs::KC;
   if (threadIdx.x >= wgs::CONSUMERS) {
     if (threadIdx.x == wgs::CONSUMERS)
-      wgs::produce<C, PLANES>(ring, &mq0, &mq1, &me, n_k, C::QROWS, w);
+      wgs::produce<C>(
+          ring, wgs::PlaneLoads<C, PLANES>{&mq0, &mq1, &me, C::QROWS}, n_k, w);
     return;
   }
   const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;

@@ -145,7 +145,8 @@ topt_wgmma_kernel(const __grid_constant__ CUtensorMap mq0,
   const wgs::Units w{blockIdx.x, units, gridDim.x, q_tiles};
   if (threadIdx.x >= wgs::CONSUMERS) {
     if (threadIdx.x == wgs::CONSUMERS)
-      wgs::produce<C, PLANES>(ring, &mq0, &mq1, &me, n_k, qbox, w);
+      wgs::produce<C>(ring, wgs::PlaneLoads<C, PLANES>{&mq0, &mq1, &me, qbox},
+                      n_k, w);
     return;
   }
   const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;

@@ -1,5 +1,7 @@
-// Shared pieces of the port's scan-and-select kernels (topt_int8r2.cu,
-// topt_dense.cu): cp.async staging helpers and the per-tile top-T emit.
+// Shared pieces of the port's scan-and-select kernels: NEG_INF, and the
+// per-tile top-T emit from a score tile in shared memory, which the f32
+// scans (dense_scan.cuh) end in; the wgmma scans emit from registers in the
+// same order (wgmma_scan.cuh::emit_quads).
 //
 // The emit replaces jsa_rag_tpu/ops/mips_pallas2.py::_emit_topt (:32-49):
 // T extract-max passes over one tile of scores per query row, each pass
@@ -15,22 +17,6 @@
 namespace topt {
 
 constexpr float NEG_INF = -3.40282347e+38f;  // float32 min, the JAX NEG_INF
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // 0 bytes read -> 16 bytes of zeros written
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 
 // Per-row top-T of a (TQ, TILE_N) tile of scores in shared memory (row
 // stride `srow` floats): one warp per query row, TILE_N/32 scores per lane

@@ -1,12 +1,16 @@
-// The 16-bit scans' scoring core for Hopper (sm_90a), shared by
-// topt_dense.cu (kernels B3-B7, each ending in the per-tile top-T emit) and
-// mips_stream.cu (kernel B9, the exact streaming top-k).
+// The scans' scoring core for Hopper (sm_90a), shared by topt_dense.cu
+// (kernels B3-B7, 16-bit rows), topt_int8r2.cu (kernels B1, B2 and B8,
+// int8 rows), each ending in the per-tile top-T emit, and mips_stream.cu
+// (kernel B9, the exact streaming top-k).
 //
 // One block runs three roles: a producer warp that streams tiles of the
 // query planes and of the index through a ring of shared-memory stages with
 // TMA (cp.async.bulk.tensor, 2-D, 128-byte swizzle, one mbarrier pair a
 // stage), and two consumer warpgroups that multiply them with
-// wgmma.mma_async (f32 accumulate, both operands from shared memory). A
+// wgmma.mma_async (both operands from shared memory). A stage row is 128
+// bytes of d whatever the element: 64 bf16 / fp16 values or 128 int8 ones,
+// and a wgmma k-step is 32 bytes of it (k16 at 16 bits, k32 at 8), so the
+// descriptors, the swizzle and the ring are the same for both widths. A
 // unit of work is (a tile of QROWS query rows, a tile of TILE = 256 index
 // rows), the whole of d; a block walks its units in order and the producer
 // runs ahead across unit boundaries, so a unit's epilogue (the emit, or
@@ -14,15 +18,17 @@
 //
 // Operand roles: the queries are wgmma's A (m64, 64 query rows a
 // warpgroup) and the index tile is B (n256: 256 index rows), both K-major
-// as stored (row-major (rows, d)). One index tile in shared memory then
-// serves 128 queries (64 with two accumulators), and each thread ends a
-// unit holding 2 query rows x 64 of the 256 columns, so the per-row top-T
-// runs in registers on the thread quads that share a row. The other
-// orientation (index rows on M) would need the (queries x 256) score tile
-// in shared memory for the per-row emit: 128 KB at 128 queries.
+// as stored (row-major (rows, d); 8-bit operands must be K-major). One
+// index tile in shared memory then serves 128 queries (64 with two
+// accumulators), and each thread ends a unit holding 2 query rows x 64 of
+// the 256 columns, so the per-row top-T runs in registers on the thread
+// quads that share a row. The other orientation (index rows on M) would
+// need the (queries x 256) score tile in shared memory for the per-row
+// emit: 128 KB at 128 queries.
 //
 // Precision: each wgmma product of two 16-bit values is exact in f32, the
-// sums are f32. Accumulators:
+// sums are f32; int8 products sum exactly in s32 (|127 * 127 * d| < 2^31 up
+// to d ~ 133k). Accumulators:
 //   bf16 rows, one plane (a bf16 query): acc = q.x exactly summed in f32;
 //   bf16 rows, two planes (the hi/lo split of an f32 query): hi.x and lo.x
 //     accumulate into ONE accumulator, k16 step by k16 step (both products
@@ -32,7 +38,10 @@
 //     own accumulator: (acc_h + 2^-11 acc_l) / s. Two accumulators of n256
 //     do not fit the registers, so each warpgroup takes 128 of the 256
 //     columns (n128) of the same 64 queries, and warpgroup 1 hands its
-//     scores to warpgroup 0 through shared memory for the emit.
+//     scores to warpgroup 0 through shared memory for the emit;
+//   int8 rows (CfgS8): one s32 accumulator of n256 over one A plane. B1's
+//     two query planes are interleaved into that plane by 8-row groups, so
+//     a thread's two rows are the two planes of one query (topt_int8r2.cu).
 
 #pragma once
 
@@ -47,7 +56,8 @@ namespace wgs {
 using topt::NEG_INF;
 
 constexpr int TILE = 256;                // index rows a unit (wgmma's N)
-constexpr int KC = 64;                   // elements of d a stage: 128 bytes
+constexpr int ROW = 128;                 // bytes of d a stage
+constexpr int KC = 64;                   // 16-bit elements of d a stage
 constexpr int CONSUMERS = 256;           // two consumer warpgroups
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr float LO_WEIGHT = 0.00048828125f;  // 2^-11, the fp16 lo plane's
@@ -56,13 +66,17 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_STAGES = 8;
 constexpr int BARS = 1024;  // 2 * MAX_STAGES mbarriers, padded to 1024
 
+// a 16-bit instance: bf16 rows, or fp16 (F16) ones
 template <bool F16, int PLANES>
 struct Cfg {
+  static constexpr bool S8 = false;
+  using Acc = float;
+  static constexpr int KE = KC;  // elements of d a stage
   static constexpr int ACCS = (F16 && PLANES == 2) ? 2 : 1;
   static constexpr int QROWS = ACCS == 1 ? 128 : 64;  // query rows a unit
   static constexpr int NW = TILE / ACCS;  // index columns a warpgroup
-  static constexpr int A_BYTES = QROWS * KC * 2;  // one full query plane
-  static constexpr int B_BYTES = TILE * KC * 2;
+  static constexpr int A_BYTES = QROWS * ROW;  // one full query plane
+  static constexpr int B_BYTES = TILE * ROW;
   static constexpr int STAGE = PLANES * A_BYTES + B_BYTES;
   static constexpr int XBUF = ACCS == 2 ? 64 * 128 * 4 : 0;  // wg 1 -> 0
   // the dense kernels' ring: as many full stages as fit a block's shared
@@ -76,10 +90,32 @@ struct Cfg {
   static constexpr int SMEM = BARS + RING + XBUF + 1024;
 };
 
+// The int8 instance: int8 rows, one A plane of 128 rows (B2's 128 queries,
+// or B1's 64 queries' two planes interleaved), one s32 accumulator. A
+// stage is half a 16-bit one's bytes per element of d, so the ring takes
+// all the shared memory beside the barriers and the row scales' buffers:
+// 4 full stages, or up to 6 short ones for a batch within one tile.
+struct CfgS8 {
+  static constexpr bool S8 = true;
+  using Acc = int;
+  static constexpr int KE = ROW;  // elements of d a stage
+  static constexpr int ACCS = 1;
+  static constexpr int QROWS = 128;  // A rows a unit
+  static constexpr int NW = TILE;
+  static constexpr int A_BYTES = QROWS * ROW;
+  static constexpr int B_BYTES = TILE * ROW;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  // the row scales of SIDE units in flight, TMA'd beside the stages
+  static constexpr int SIDE = 4;
+  static constexpr int SIDE_BYTES = SIDE * TILE * 4;
+  static constexpr int RING = 232448 - BARS - SIDE_BYTES - 1024;
+  static constexpr int SMEM = BARS + RING + SIDE_BYTES + 1024;
+};
+
 // A stage holds PLANES query boxes of qbox rows, each rounded up to 1024
 // bytes, then the index tile: its bytes.
 __host__ __device__ inline int stage_bytes(int planes, int qbox) {
-  return planes * ((qbox * KC * 2 + 1023) / 1024 * 1024) + TILE * KC * 2;
+  return planes * ((qbox * ROW + 1023) / 1024 * 1024) + TILE * ROW;
 }
 
 // How many stages ring_bytes hold, at most MAX_STAGES.
@@ -150,6 +186,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// a box of n 4-byte elements at element c0 of a 1-D map; elements past
+// the tensor arrive as zeros
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
@@ -181,6 +228,11 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // m64nNk16, f32 += A (smem, K-major) x B (smem, K-major); one thread's
@@ -308,6 +360,60 @@ __device__ __forceinline__ void wgmma_n128_f16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// m64n256k32, s32 += A (smem, K-major s8) x B (smem, K-major s8): the
+// integer form takes only scale-d (no scale or transpose immediates, both
+// operands K-major); its s32 fragment layout is the f32 one above
+__device__ __forceinline__ void wgmma_n256_s8(int (&d)[128], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]),
+        "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]),
+        "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]),
+        "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]),
+        "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
+        "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]),
+        "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]),
+        "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]),
+        "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]),
+        "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]),
+        "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]),
+        "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]),
+        "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]),
+        "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // ------------------------------------------------------------ the pipeline
 // Units u = u0, u0 + step, ... < u1 each stand for (query tile u % q_tiles,
 // index tile u / q_tiles); both roles walk the same sequence.
@@ -338,7 +444,7 @@ __device__ __forceinline__ Ring carve(unsigned char* smem_raw, int ring_bytes,
               full,
               full + MAX_STAGES,
               ring_depth(ring_bytes, stride),
-              (qbox * KC * 2 + 1023) / 1024 * 1024,
+              (qbox * ROW + 1023) / 1024 * 1024,
               stride};
 }
 
@@ -354,30 +460,47 @@ __device__ __forceinline__ void init_ring(const Ring& r) {
   }
 }
 
-// The producer (one thread): for every unit, ceil(d / KC) stages of
-// (query planes, index tile). The barrier counts the whole boxes' bytes,
-// zero-filled parts included; the query box may hold fewer than QROWS rows
-// (qbox: a batch smaller than a tile), and a warpgroup's rows past it then
-// read other bytes of the stage, which only reach rows past b.
+// What the 16-bit scans' stages hold: PLANES query boxes of qbox rows at
+// the unit's first query row, then the index tile. The barrier counts the
+// whole boxes' bytes, zero-filled parts included; the query box may hold
+// fewer than QROWS rows (qbox: a batch smaller than a tile), and a
+// warpgroup's rows past it then read other bytes of the stage, which only
+// reach rows past b.
 template <class C, int PLANES>
-__device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* mq0,
-                                        const CUtensorMap* mq1,
-                                        const CUtensorMap* me, int n_k,
-                                        int qbox, const Units& w) {
-  const uint32_t bytes = PLANES * qbox * KC * 2 + C::B_BYTES;
+struct PlaneLoads {
+  const CUtensorMap *mq0, *mq1, *me;
+  int qbox;
+  __device__ uint32_t bytes() const { return PLANES * qbox * ROW + C::B_BYTES; }
+  // nothing beside the stages
+  __device__ void unit(long long, int) const {}
+  __device__ void stage(unsigned char* st, int plane, uint64_t* bar, int kc,
+                        int q0, int n0) const {
+    tma_load(st, mq0, bar, kc * C::KE, q0);
+    if constexpr (PLANES == 2) tma_load(st + plane, mq1, bar, kc * C::KE, q0);
+    tma_load(st + PLANES * plane, me, bar, kc * C::KE, n0);
+  }
+};
+
+// The producer (one thread): for every unit, loads.unit(i, n0) (what the
+// unit's epilogue reads beside the stages; i: the unit's place in this
+// block's walk, n0: its first index row), then ceil(d / C::KE) stages,
+// each loads.stage(...) at A row q0 and index row n0, counted as
+// loads.bytes() on the stage's full barrier.
+template <class C, class Loads>
+__device__ __forceinline__ void produce(const Ring& r, const Loads& loads,
+                                        int n_k, const Units& w) {
+  const uint32_t bytes = loads.bytes();
   int s = 0;
   uint32_t ph = 0;
-  for (long long u = w.u0; u < w.u1; u += w.step) {
+  long long i = 0;
+  for (long long u = w.u0; u < w.u1; u += w.step, ++i) {
     const int q0 = static_cast<int>(u % w.q_tiles) * C::QROWS;
     const int n0 = static_cast<int>(u / w.q_tiles) * TILE;
+    loads.unit(i, n0);
     for (int kc = 0; kc < n_k; ++kc) {
       mbar_wait(&r.empty[s], ph ^ 1u);
-      unsigned char* st = r.stages + s * r.stride;
       mbar_expect_tx(&r.full[s], bytes);
-      tma_load(st, mq0, &r.full[s], kc * KC, q0);
-      if constexpr (PLANES == 2)
-        tma_load(st + r.plane, mq1, &r.full[s], kc * KC, q0);
-      tma_load(st + PLANES * r.plane, me, &r.full[s], kc * KC, n0);
+      loads.stage(r.stages + s * r.stride, r.plane, &r.full[s], kc, q0, n0);
       if (++s == r.n) {
         s = 0;
         ph ^= 1u;
@@ -402,20 +525,22 @@ __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da,
 
 // One consumer warpgroup's product for one unit, over the ring from stage
 // (s, ph) on: acc[a] (a < ACCS) = the warpgroup's 64 query rows against its
-// NW index columns. A warpgroup whose queries all lie past b (`active`
-// false) waits and releases the stages without multiplying.
+// NW index columns (f32 sums of 16-bit products, or s32 sums of int8 ones
+// for CfgS8; F16 picks fp16 over bf16 and is unused there). A warpgroup
+// whose queries all lie past b (`active` false) waits and releases the
+// stages without multiplying.
 template <bool F16, int PLANES, class C>
-__device__ __forceinline__ void mma_unit(float (&acc)[C::ACCS][C::NW / 2],
-                                         const Ring& r, int& s, uint32_t& ph,
-                                         int n_k, int wg, bool active) {
+__device__ __forceinline__ void mma_unit(
+    typename C::Acc (&acc)[C::ACCS][C::NW / 2], const Ring& r, int& s,
+    uint32_t& ph, int n_k, int wg, bool active) {
 #pragma unroll
   for (int a = 0; a < C::ACCS; ++a) {
 #pragma unroll
-    for (int i = 0; i < C::NW / 2; ++i) acc[a][i] = 0.f;
+    for (int i = 0; i < C::NW / 2; ++i) acc[a][i] = 0;
     fence_regs(acc[a]);
   }
-  const int a_off = C::ACCS == 1 ? wg * 64 * KC * 2 : 0;
-  const int b_off = PLANES * r.plane + (C::ACCS == 2 ? wg * 128 * KC * 2 : 0);
+  const int a_off = C::ACCS == 1 ? wg * 64 * ROW : 0;
+  const int b_off = PLANES * r.plane + (C::ACCS == 2 ? wg * 128 * ROW : 0);
   int prev = -1;
   for (int kc = 0; kc < n_k; ++kc) {
     mbar_wait(&r.full[s], ph);
@@ -426,8 +551,10 @@ __device__ __forceinline__ void mma_unit(float (&acc)[C::ACCS][C::NW / 2],
       const uint64_t db = sw128_desc(st + b_off);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < KC / 16; ++kk) {
-        if constexpr (C::ACCS == 2) {
+      for (int kk = 0; kk < ROW / 32; ++kk) {  // +32 bytes a k-step
+        if constexpr (C::S8) {
+          wgmma_n256_s8(acc[0], da0 + 2 * kk, db + 2 * kk);
+        } else if constexpr (C::ACCS == 2) {
           mma<F16, C::NW>(acc[0], da0 + 2 * kk, db + 2 * kk);
           mma<F16, C::NW>(acc[C::ACCS - 1], da1 + 2 * kk, db + 2 * kk);
         } else {
@@ -452,35 +579,45 @@ __device__ __forceinline__ void mma_unit(float (&acc)[C::ACCS][C::NW / 2],
   for (int a = 0; a < C::ACCS; ++a) fence_regs(acc[a]);
 }
 
-// The per-tile top-T of one warp's 16 query rows from the registers: v[i]
-// holds row (lane/4 + 8h) at column 8j + 2*(lane%4) + e of the unit's 256,
-// i = 4j + 2h + e, scores already masked; the emit tile is the columns with
-// j0 <= j < j1. T extract-max passes per row on the
-// row's thread quad: first the thread's own best (columns ascend with i,
-// so ">" keeps the first), then the quad's, ties to the lower column
-// (topt_emit.cuh's order); id -1 once the tile has no scorable column.
+// The per-tile top-T of one warp's query rows from the registers. With
+// R = 128 (two rows a thread): v[i] holds row (lane/4 + 8h) at column
+// 8j + 2*(lane%4) + e of the unit's 256, i = 4j + 2h + e; with R = 64 (one
+// row a thread, B1's interleaved planes): row lane/4 at i = 2j + e. Scores
+// already masked; the emit tile is the columns with j0 <= j < j1. T
+// extract-max passes per row on the row's thread quad: first the thread's
+// own best (columns ascend with i, so ">" keeps the first), then the
+// quad's, ties to the lower column (topt_emit.cuh's order); id -1 once the
+// tile has no scorable column.
 // q_row: the query of h = 0, rows at or past b are not written; out index
 // ((nt_out * b + q) * t_per_tile + t); ids n0 + column.
-__device__ __forceinline__ void emit_quads(float (&v)[128], int j0, int j1,
+template <int R>
+__device__ __forceinline__ void emit_quads(float (&v)[R], int j0, int j1,
                                            int q_row, int b, int n0,
                                            long long nt_out, int t_per_tile,
                                            float* __restrict__ out_s,
                                            int* __restrict__ out_i) {
+  static_assert(R == 128 || R == 64, "two rows a thread, or one");
+  constexpr int H = R / 64;  // rows a thread holds
   const int lane = threadIdx.x & 31, tig = lane & 3;
   for (int t = 0; t < t_per_tile; ++t) {
     const float below = __int_as_float(0xff800000);  // -inf < NEG_INF
-    float bv[2] = {below, below};
-    int bc[2] = {TILE, TILE};
+    float bv[H];
+    int bc[H];
 #pragma unroll
-    for (int i = 0; i < 128; ++i) {
-      const int j = i >> 2, h = (i >> 1) & 1, e = i & 1;
+    for (int h = 0; h < H; ++h) {
+      bv[h] = below;
+      bc[h] = TILE;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int j = i / (2 * H), h = (i >> 1) % H, e = i & 1;
       if (j >= j0 && j < j1 && v[i] > bv[h]) {
         bv[h] = v[i];
         bc[h] = 8 * j + 2 * tig + e;
       }
     }
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < H; ++h) {
 #pragma unroll
       for (int off = 1; off <= 2; off <<= 1) {
         const float ov = __shfl_xor_sync(FULL, bv[h], off);
@@ -499,8 +636,8 @@ __device__ __forceinline__ void emit_quads(float (&v)[128], int j0, int j1,
     }
     // the owner clears the emitted column
 #pragma unroll
-    for (int i = 0; i < 128; ++i) {
-      const int j = i >> 2, h = (i >> 1) & 1, e = i & 1;
+    for (int i = 0; i < R; ++i) {
+      const int j = i / (2 * H), h = (i >> 1) % H, e = i & 1;
       if (bc[h] == 8 * j + 2 * tig + e) v[i] = NEG_INF;
     }
   }
@@ -540,28 +677,60 @@ inline int query_box(int b, int qrows) {
   return b >= qrows ? qrows : (b + 7) / 8 * 8;
 }
 
-// The TMA map of a row-major (rows, d) 16-bit matrix, boxes of (KC,
-// box_rows) under the 128-byte swizzle. -> 0, or a non-zero code:
-// cudaErrorNotSupported without the entry point, 10000 + the CUresult of a
-// refused encode.
-inline int make_map(CUtensorMap* m, const void* base, bool f16, int d,
-                    long long rows, int box_rows) {
+// The TMA map of a row-major (rows, d) matrix of `type` elements of
+// elem_bytes, boxes of (ROW bytes of d, box_rows) under the 128-byte
+// swizzle. -> 0, or a non-zero code: cudaErrorNotSupported without the
+// entry point, 10000 + the CUresult of a refused encode.
+inline int make_map_of(CUtensorMap* m, const void* base,
+                       CUtensorMapDataType type, int elem_bytes, int d,
+                       long long rows, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
-  const cuuint32_t box[2] = {KC, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(ROW / elem_bytes),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r =
-      fn(m,
-         f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-         2, const_cast<void*>(base), dims, strides, box, elem,
+      fn(m, type, 2, const_cast<void*>(base), dims, strides, box, elem,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(r);
+}
+
+// a 16-bit matrix: fp16 (f16) or bf16
+inline int make_map(CUtensorMap* m, const void* base, bool f16, int d,
+                    long long rows, int box_rows) {
+  return make_map_of(m, base,
+                     f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     2, d, rows, box_rows);
+}
+
+// a 1-D f32 vector of n elements, boxes of box elements, no swizzle
+inline int make_map_1d_f32(CUtensorMap* m, const void* base, long long n,
+                           int box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n) * 4};  // unused
+  const cuuint32_t boxd[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint32_t elem[1] = {1};
+  const CUresult r =
+      fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), dims,
+         strides, boxd, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(r);
+}
+
+// an int8 matrix (TMA moves it as bytes)
+inline int make_map_s8(CUtensorMap* m, const void* base, int d,
+                       long long rows, int box_rows) {
+  return make_map_of(m, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, d, rows,
+                     box_rows);
 }
 
 inline int sm_count(int* sms) {

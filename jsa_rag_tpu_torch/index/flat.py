@@ -27,8 +27,9 @@ ROADMAP queue A item 13). Storage modes:
   searched through ``ops.mips.mips_topk_t`` (kernel B3 on the card).
 
 All planes are ROW-major (N, d): the JAX package keeps them (d, N) because
-the TPU's MXU wants the contraction dim leading, while ``mma.sync`` wants
-both operands K-contiguous, which rows are; rows are also the on-disk layout.
+the TPU's MXU wants the contraction dim leading, while ``wgmma`` wants
+both operands K-major (its 8-bit forms take no other), which rows are; rows
+are also the on-disk layout.
 The JAX package's ``refine_gather="rows"`` copy of a float16 index is
 therefore the store itself, and the option is gone.
 

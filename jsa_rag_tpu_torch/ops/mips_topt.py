@@ -282,9 +282,10 @@ def _kernel_libs() -> dict:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn, argtypes in (
             (libs["topt_int8r2"].topt_int8r2_launch,
-             [ptr] * 6 + [i32] * 6 + [ptr] * 3),
+             [ptr] * 5 + [i32] * 6 + [ptr] * 3),
             (libs["topt_int8r2"].topt_int8_launch,
              [ptr] * 4 + [i32] * 6 + [ptr] * 3),
+            (libs["topt_int8r2"].topt_int8_geometry, [i32] * 4 + [ptr]),
             (libs["topt_dense"].topt_dense_bf16_launch,
              [ptr] * 3 + [i32] * 6 + [ptr] * 3),
             (libs["topt_dense"].topt_dense_f32_launch,
@@ -305,20 +306,25 @@ def _kernel_libs() -> dict:
     return libs
 
 
-def _check_launch(b: int, d: int, n_rows: int, tile_n: int, planes):
+def _check_launch(b: int, d: int, n_rows: int, tile_n: int, planes, *,
+                  grid32: bool = False):
     """What every kernel refuses: an emit tile they are not built for, d not
-    a multiple of 16, planes not 16-byte aligned for cp.async and TMA, or a
-    grid or row id past int32. -> n_tiles."""
+    a multiple of 16 (TMA's 16-byte row stride at any element width), planes
+    (and the int8 row scales) not 16-byte aligned for TMA and the f32 loads,
+    an empty batch or index, or a row id past int32; with ``grid32``, a grid
+    past int32. -> n_tiles.
+
+    The int8 and 16-bit kernels run persistent blocks, one an SM, over a
+    64-bit count of units; only the f32 scan keeps one block per (32-query
+    tile, index tile) on a 1-D grid (``grid32``)."""
     if tile_n not in KERNEL_TILES:
         raise ValueError(f"kernel tile_n must be one of {KERNEL_TILES}")
     if d % 16 or any(t.data_ptr() % 16 for t in planes):
         raise ValueError("kernel needs d % 16 == 0 and 16-byte aligned "
                          "planes")
     n_tiles = -(-n_rows // tile_n)
-    # the int8 and f32 kernels: one block per (32-query tile, index tile) on
-    # a 1-D grid (the 16-bit ones run persistent blocks)
     if (b < 1 or n_tiles < 1 or n_rows >= 2 ** 31 - tile_n
-            or -(-b // 32) * n_tiles >= 2 ** 31):
+            or (grid32 and -(-b // 32) * n_tiles >= 2 ** 31)):
         raise ValueError(f"kernel grid out of range: b={b}, "
                          f"n_tiles={n_tiles}")
     return n_tiles
@@ -344,6 +350,47 @@ def _launch(name: str, fn, args, b: int, n_tiles: int, t_per_tile: int,
     return out_s, out_i
 
 
+def interleave_planes(qv1: torch.Tensor, qv2: torch.Tensor) -> torch.Tensor:
+    """Kernel B1's A plane: the (B, d) int8 query planes interleaved by
+    8-row groups -> (2 * round_up(B, 8), d) int8, rows 16g..16g+7 plane 1
+    of queries 8g..8g+7 and rows 16g+8..16g+15 their plane 2, the rows of
+    queries past B zero. wgmma's fragment layout then hands each thread
+    both planes' sums of one query (``csrc/topt_int8r2.cu``). One stack
+    when B % 8 == 0."""
+    b, d = qv1.shape
+    pad = _round_up(b, 8) - b
+    if pad:
+        qv1, qv2 = (torch.nn.functional.pad(p, (0, 0, 0, pad))
+                    for p in (qv1, qv2))
+    return torch.stack([qv1.view(-1, 8, d), qv2.view(-1, 8, d)],
+                       dim=1).view(-1, d)
+
+
+INT8_QROWS = 128  # A rows a unit of the int8 core (wgmma_scan.cuh::CfgS8)
+# CfgS8::RING: a block's shared memory less the barriers, the row scales of
+# 4 units and the 1024-byte alignment slack
+_INT8_RING = 232_448 - 1024 - 4 * 1024 - 1024
+_TILE = 256  # index rows a unit
+_MAX_STAGES = 8
+
+
+def int8_scan_geometry(b: int, planes: int, n_rows: int, sms: int) -> dict:
+    """How ``csrc/topt_int8r2.cu`` cuts a scan of ``b`` queries with
+    ``planes`` query planes (1: B2, 2: B1) over ``n_rows`` rows on ``sms``
+    SMs (a pure mirror of its ``geometry``; the card tests compare it with
+    ``topt_int8_geometry``): the A plane's rows, the query rows a stage's
+    TMA box loads, the tiles of 128 A rows, the ring's stages, the units
+    (query tile fastest) and the persistent grid."""
+    a_rows = b if planes == 1 else 2 * _round_up(b, 8)
+    qbox = INT8_QROWS if a_rows >= INT8_QROWS else _round_up(a_rows, 8)
+    stage = _round_up(qbox * 128, 1024) + _TILE * 128
+    q_tiles = -(-a_rows // INT8_QROWS)
+    units = q_tiles * -(-n_rows // _TILE)
+    return {"a_rows": a_rows, "qbox": qbox, "q_tiles": q_tiles,
+            "stages": min(_MAX_STAGES, _INT8_RING // stage),
+            "units": units, "grid": min(units, sms)}
+
+
 def scan_topt_int8r2(qv1, qs1, qv2, qs2, emb, es, valid_n: int,
                      tile_n: int, t_per_tile: int):
     """Two-plane int8 scan + per-tile top-T emit -> (scores, ids), each
@@ -352,7 +399,8 @@ def scan_topt_int8r2(qv1, qs1, qv2, qs2, emb, es, valid_n: int,
     qv1, qv2 (B, d) int8 and qs1, qs2 (B, 1) f32: the query planes;
     emb (N, d) int8 and es (1, N) f32: index plane 1 and its scales;
     columns at or past ``valid_n`` score NEG_INF. CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/topt_int8r2.cu`` (and count it in
+    version; CUDA tensors launch ``csrc/topt_int8r2.cu`` (kernel B1, on the
+    planes as ``interleave_planes`` lays them out, counted in
     ``scan_topt_int8r2.launches``) or raise — there is no fallback."""
     if emb.device.type == "cpu":
         return scan_topt_int8r2_plain(qv1, qs1, qv2, qs2, emb, es, valid_n,
@@ -363,12 +411,13 @@ def scan_topt_int8r2(qv1, qs1, qv2, qs2, emb, es, valid_n: int,
                      t_per_tile)
     b, d = qv1.shape
     n_rows = emb.shape[0]
-    n_tiles = _check_launch(b, d, n_rows, tile_n, (qv1, qv2, emb))
+    qv = interleave_planes(qv1, qv2)
+    n_tiles = _check_launch(b, d, n_rows, tile_n, (qv, emb, es))
     return _launch(
         "topt_int8r2", _kernel_libs()["topt_int8r2"].topt_int8r2_launch,
-        (qv1.data_ptr(), qs1.data_ptr(), qv2.data_ptr(), qs2.data_ptr(),
-         emb.data_ptr(), es.data_ptr(), b, d, n_rows, int(valid_n), tile_n,
-         t_per_tile), b, n_tiles, t_per_tile, emb.device, scan_topt_int8r2)
+        (qv.data_ptr(), qs1.data_ptr(), qs2.data_ptr(), emb.data_ptr(),
+         es.data_ptr(), b, d, n_rows, int(valid_n), tile_n, t_per_tile), b,
+        n_tiles, t_per_tile, emb.device, scan_topt_int8r2)
 
 
 scan_topt_int8r2.launches = 0
@@ -383,8 +432,9 @@ def scan_topt_int8(qv, qs, emb, es, valid_n: int, tile_n: int,
     and es (1, N) f32: the index rows and their scales; rows at or past
     ``valid_n`` score NEG_INF. CPU tensors take the plain version; CUDA
     tensors launch the single-plane instance of ``csrc/topt_int8r2.cu``
-    (kernel B2, counted in ``scan_topt_int8.launches``, or in
-    ``counter.launches`` when given) or raise — there is no fallback."""
+    (kernel B2, 128 queries a unit, counted in ``scan_topt_int8.launches``,
+    or in ``counter.launches`` when given) or raise — there is no
+    fallback."""
     if emb.device.type == "cpu":
         return scan_topt_int8_plain(qv, qs, emb, es, valid_n, tile_n,
                                     t_per_tile)
@@ -393,7 +443,7 @@ def scan_topt_int8(qv, qs, emb, es, valid_n: int, tile_n: int,
     _check_int8_args(qv, qs, emb, es, valid_n, tile_n, t_per_tile)
     b, d = qv.shape
     n_rows = emb.shape[0]
-    n_tiles = _check_launch(b, d, n_rows, tile_n, (qv, emb))
+    n_tiles = _check_launch(b, d, n_rows, tile_n, (qv, emb, es))
     return _launch(
         "topt_int8", _kernel_libs()["topt_int8r2"].topt_int8_launch,
         (qv.data_ptr(), qs.data_ptr(), emb.data_ptr(), es.data_ptr(), b, d,
@@ -503,7 +553,7 @@ def scan_topt_dense(q, emb, valid_n: int, tile_n: int, t_per_tile: int, *,
         ptrs = (planes[0].data_ptr(),
                 planes[1].data_ptr() if len(planes) == 2 else None)
     else:
-        n_tiles = _check_launch(b, d, n_rows, tile_n, (q, emb))
+        n_tiles = _check_launch(b, d, n_rows, tile_n, (q, emb), grid32=True)
         fn, ptrs = lib.topt_dense_f32_launch, (q.data_ptr(),)
     return _launch("topt_dense", fn,
                    (*ptrs, emb.data_ptr(), b, d, n_rows, int(valid_n), tile_n,

@@ -6,9 +6,10 @@ only, so they also run where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances. B1 (int8r) and B2 (single-plane int8): the kernel and the plain
-version do the same f32 arithmetic (the int8 products are exact integers in
-both), so candidate scores agree to 1e-5 relative and ids are equal except
-among tied scores.
+version do the same f32 arithmetic in the same order on the same exact
+integer sums (s32 on wgmma, exact f32 or f64 products in the plain
+version), so candidate scores are equal bit for bit and ids are equal
+except among tied scores.
 B3 (dense): the bf16 kernel scores the (hi, lo) bf16 split of the f32 query,
 which leaves <= 2^-18 * sum|q_i x_i| per score, and sums in another order
 than cuBLAS's f32 product; for unit-norm rows and queries the scores agree
@@ -50,12 +51,11 @@ def cuda():
 
 def _assert_same_candidates(ks, ki, ps, pi):
     ks, ki, ps, pi = (x.cpu().numpy() for x in (ks, ki, ps, pi))
-    np.testing.assert_allclose(ks, ps, rtol=1e-5, atol=0)
+    np.testing.assert_array_equal(ks, ps)
     # a differing id is allowed only where its score ties another
     # candidate of the same (tile, row) list
     for nt, r, p in np.argwhere(ki != pi):
-        assert np.isclose(ks[nt, r], ks[nt, r, p], rtol=1e-5,
-                          atol=0).sum() > 1, (nt, r, p)
+        assert (ks[nt, r] == ks[nt, r, p]).sum() > 1, (nt, r, p)
 
 
 @pytest.mark.cuda
@@ -64,6 +64,7 @@ def _assert_same_candidates(ks, ki, ps, pi):
     (5, 4099, 3000, 1024, 4096, 256),
     (40, 1000, 1000, 256, 64, 128),
     (33, 777, 700, 80, 50, 128),  # d not a multiple of the 128-byte stage
+    (130, 777, 700, 80, 50, 128),  # and a third tile of 64 queries
 ])
 def test_kernel_matches_plain(cuda, b, n, nv, d, k_sel, tile):
     g = torch.Generator(device=cuda).manual_seed(b + n)
@@ -137,6 +138,7 @@ def test_search_on_card_matches_cpu(cuda):
     (512, 4096, 4000, 1024, 400, 256),
     (5, 4099, 3000, 1024, 4096, 256),  # more candidates than valid rows
     (33, 777, 700, 80, 50, 128),
+    (130, 777, 700, 80, 50, 128),  # d < 128 and a second tile of 128
 ])
 def test_int8_kernel_matches_plain(cuda, b, n, nv, d, k_sel, tile):
     """Kernel B2 (one query plane) against ``scan_topt_int8_plain``."""
@@ -173,6 +175,57 @@ def test_int8_kernel_grid_past_65535_index_tiles(cuda):
     assert int(ki[65_535:].min()) >= 65_535 * tile
     assert int(ki.max()) < nv
     _assert_same_candidates(ks, ki, ps, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B1", "B2"])
+@pytest.mark.parametrize("b", [1, 2, 8, 63, 64, 65, 257, 512])
+def test_int8_kernels_batch_sizes(cuda, kernel, b):
+    """B1 and B2 on the int8 wgmma core at every batch size of its query
+    tiles (64 queries a unit for B1's interleaved planes, 128 for B2; 63,
+    65 and 257 end in a partial tile, 1-8 load only their own rows), at
+    valid_n < N with a ragged last tile: the candidates' scores equal the
+    plain version's bit for bit, ids equal except among tied scores."""
+    g = torch.Generator(device=cuda).manual_seed(b + len(kernel) + 29)
+    n, nv, d = 20_000 - 37, 19_990 - 37, 1024
+    v1, s1, _, _ = tp2.quantize_int8_residual(
+        torch.randn((n, d), generator=g, device=cuda))
+    qv1, qs1, qv2, qs2 = tp2.quantize_int8_residual(
+        torch.randn((b, d), generator=g, device=cuda))
+    t = tp2._pool_t(400, nv, 256, 4)
+    if kernel == "B1":
+        scan, plain = tp2.scan_topt_int8r2, tp2.scan_topt_int8r2_plain
+        args = (qv1, qs1, qv2, qs2, v1, s1.reshape(1, -1), nv, 256, t)
+    else:
+        scan, plain = tp2.scan_topt_int8, tp2.scan_topt_int8_plain
+        args = (qv1, qs1, v1, s1.reshape(1, -1), nv, 256, t)
+    before = scan.launches
+    ks, ki = scan(*args)
+    ps, pi = plain(*args)
+    torch.cuda.synchronize()
+    assert scan.launches == before + 1
+    assert ks.shape == (-(-n // 256), b, t) and int(ki.max()) < nv
+    _assert_same_candidates(ks, ki, ps, pi)
+
+
+@pytest.mark.cuda
+def test_int8_geometry_mirrors_the_library(cuda):
+    """``int8_scan_geometry`` (pure Python) equals what
+    ``csrc/topt_int8r2.cu`` computes for a launch: the query box, the query
+    tiles, the ring's stages and the persistent grid."""
+    import ctypes
+
+    lib = tp2._kernel_libs()["topt_int8r2"]
+    out = (ctypes.c_int * 4)()
+    for planes in (1, 2):
+        for b in (1, 2, 7, 8, 9, 63, 64, 65, 127, 128, 129, 257, 512, 4096):
+            for n_rows, sms in ((1, 132), (300, 132), (1_300_000, 132),
+                                (4096, 7)):
+                assert lib.topt_int8_geometry(b, planes, n_rows, sms,
+                                              out) == 0
+                g = tp2.int8_scan_geometry(b, planes, n_rows, sms)
+                assert list(out) == [g["qbox"], g["q_tiles"], g["stages"],
+                                     g["grid"]], (planes, b, n_rows, sms)
 
 
 @pytest.mark.cuda
