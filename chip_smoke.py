@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port: one CUDA card, the index-serving path,
-the evaluate path, the jsa, rag, vrag and concat training paths and the
-MIPS benches at full width, every kernel of those paths against its plain
-PyTorch version.
+the evaluate path, the jsa, rag, vrag and concat training paths, the MIPS
+benches, and training and evaluation from HF checkpoint directories at full
+width, every kernel of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -156,6 +156,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     and T, and the whole wrapper), beside their plain versions (B=64), one
     bare ``torch.matmul`` / ``torch._int_mm`` of the same operands and
     their bounds.
+21. training and evaluation from HF checkpoint directories that the smoke
+    writes itself from seeded normal(0, 0.02) weights (ones and zeros for
+    the norms) at the published geometries, with its own safetensors
+    writer: ``bge-large-en/`` (``BertModel``, 24 x 1024, vocab 30522,
+    float32 ``pytorch_model.bin``; cls_norm pooling from the path),
+    ``mistral-7b/`` (Mistral-7B-v0.1's widths, ``HF_GEN_LAYERS`` of its 32
+    layers, bf16 sharded safetensors with ``model.safetensors.index.json``)
+    and ``gpt2/`` (gpt2's config, float32 ``model.safetensors``). A hybrid
+    index of 1,300,000 x 1024 (the first 16,384 rows from the imported
+    passage tower, the rest clustered) is saved; then
+    ``python -m jsa_rag_tpu_torch.train``'s ``main`` with the flagship
+    options plus the HF directories, ``--param_dtype bfloat16
+    --retrieve_with_rerank true --profile_steps 2-3
+    --use_gradient_checkpoint_generator true
+    --use_gradient_checkpoint_retriever true --max_vocab 30522`` (the
+    SimpleTokenizer fallback: no HF tokenizer here) for 4 steps, saved at
+    the end: the HF load time, each step's losses (finite), wall split and
+    device time, peak memory, B2's launches; every stored parameter bf16
+    and Adam's mu and nu f32; B2 against its plain version on main's first
+    rerank search (k = 128); the device's idle share over the profiled step
+    from the trace (one minus the union of its CUDA kernel intervals over
+    the trace's window) and its annotations; the checkpoint's generator
+    base bit-identical to the files' bf16 values. Then
+    ``python -m jsa_rag_tpu_torch.evaluate``'s ``main`` on that checkpoint
+    with the same directories, bf16 storage and the rerank over 16
+    questions: B2's launches, main's first rerank against an exact f32
+    rescoring of its 128 candidates, 8 greedy rows against a cache-free
+    forward; and ``evaluate`` from the gpt2 directory over 8 questions
+    with the same greedy check.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, the ``kernels`` JSON object (B1-B9) and
@@ -242,6 +271,15 @@ GREEDY_TOL = 0.1
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def log_disk(what: str) -> None:
+    """The disk space in use under the temporary directory. The card's
+    machine allows a run 45 GiB of disk writes, and freed blocks count
+    until the filesystem reuses them, so the smoke keeps what it holds at
+    once small."""
+    used = shutil.disk_usage(tempfile.gettempdir()).used
+    log(f"  disk in use after {what}: {used / 2**30:.1f} GiB")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1367,6 +1405,19 @@ def timed_train_main(torch, argv, counter, record, parts) -> dict:
                     for k, v in spans.items()}}
 
 
+def mark_profiled(steps: list, span: str, what: str) -> None:
+    """Mark and log the steps of ``--profile_steps span``: the profiler's
+    start and stop (trace export) fall in their ``train_step`` wall, and
+    its start takes first-use work out of their device spans, so they are
+    not comparable with unprofiled records of the same steps."""
+    a, b = (int(x) for x in span.split("-"))
+    for s in steps:
+        s["under_profiler"] = s["step"] in (a, b)
+    log(f"  {what}: steps {a} (profiler start) and {b} (its stop and the "
+        f"trace export) are times under torch.profiler, not comparable with "
+        f"unprofiled records of those steps")
+
+
 def step_records(run: dict, metrics: list, keys, n_steps: int) -> list:
     """Check and log each step of a ``timed_train_main`` run against its
     metrics.jsonl: every value of ``keys`` finite; -> per-step records
@@ -1832,6 +1883,13 @@ def f16_train_phase(torch, mt, g, dev, work):
         if run["final_step"] != n_steps or run["launches"] < 1:
             raise AssertionError(f"{name} did not run its steps through B4")
         steps = step_records(run, metrics, keys, n_steps)
+        traces = os.path.join(ck, name, "profile")
+        profile = {}
+        if os.path.isdir(traces):
+            mark_profiled(steps, argv[argv.index("--profile_steps") + 1],
+                          name)
+            profile = {"profile": log_trace(os.path.join(
+                traces, os.listdir(traces)[0]))}
         calls = run.pop("calls")
         q = torch.cat([args[0] for args, _, _ in calls]).float()
         got = torch.cat([out[1][:, :10] for _, _, out in calls])
@@ -1861,7 +1919,7 @@ def f16_train_phase(torch, mt, g, dev, work):
         torch.cuda.empty_cache()
         return {"launches": run.pop("launches"), "recall_at_10": r10,
                 "first_scan_max_abs_err": err, "steps": steps,
-                "checkpoint": inv, **resumed, **{k: run[k] for k in (
+                "checkpoint": inv, **resumed, **profile, **{k: run[k] for k in (
                     "main_s", "peak", "total", "retries")}}
 
     log(f"  cut for time: --total_steps {TRAIN_STEPS} (flagship 20,000), "
@@ -1876,7 +1934,8 @@ def f16_train_phase(torch, mt, g, dev, work):
     cells = {}
     for name, extra, keys, cell_init in (
             ("vrag", ["--gold_score_mode", "vrag", "--union_kl", "true",
-                      "--use_gradient_checkpoint_retriever", "true"],
+                      "--use_gradient_checkpoint_retriever", "true",
+                      "--profile_steps", "1-2"],
              ("loss/train_loss", "loss/generator_loss", "KL"),
              dict(init, post_retriever=init["retriever"])),
             ("concat", ["--gen_method", "concat", "--save_optimizer",
@@ -2400,6 +2459,575 @@ def bench_phase(torch, mt, ms, dev, errs: dict) -> dict:
             "timing": timing}
 
 
+# --------------------------------------------------------------- phase 21
+SAFETENSORS_NAMES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16"}
+
+
+def write_safetensors(path: str, tensors: dict, metadata=None) -> None:
+    """``{name: CPU tensor}`` -> one ``.safetensors`` file: an 8-byte
+    little-endian header length, the JSON header (``dtype``, ``shape``,
+    ``data_offsets`` from the end of the header; ``__metadata__``) padded
+    with spaces to 8 bytes, then each tensor's bytes in order."""
+    import torch
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_NAMES[str(t.dtype).removeprefix(
+            "torch.")], "shape": list(t.shape),
+            "data_offsets": [offset, offset + n]}
+        offset += n
+    if metadata:
+        header["__metadata__"] = metadata
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy()
+                    .data)
+
+
+# the published geometries (config.json of BAAI/bge-large-en,
+# mistralai/Mistral-7B-v0.1 and gpt2); HF_GEN_LAYERS is the depth the
+# smoke writes for the Mistral-width generator (widths are never cut):
+# each layer adds 0.41 GiB of bf16 shards and 0.81 GiB of f32 checkpoint
+# to the phase's disk peak, and past 8 layers the phase outgrows ~5
+# minutes and bf16 rounding alone (the f32 cache is exact: see
+# jsa_rag_tpu_torch/analysis/decode_drift.py) nears the greedy check's
+# 0.1-nat bound
+HF_GEN_LAYERS = 8
+BGE_LARGE_CONFIG = {
+    "architectures": ["BertModel"], "model_type": "bert",
+    "hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 16,
+    "intermediate_size": 4096, "vocab_size": 30522,
+    "max_position_embeddings": 512, "type_vocab_size": 2,
+    "layer_norm_eps": 1e-12, "hidden_act": "gelu", "initializer_range": 0.02}
+MISTRAL_7B_CONFIG = {
+    "architectures": ["MistralForCausalLM"], "model_type": "mistral",
+    "hidden_size": 4096, "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "intermediate_size": 14336,
+    "vocab_size": 32000, "rope_theta": 10000.0, "rms_norm_eps": 1e-5,
+    "tie_word_embeddings": False, "max_position_embeddings": 32768,
+    "sliding_window": 4096, "hidden_act": "silu", "torch_dtype": "bfloat16",
+    "initializer_range": 0.02}
+GPT2_CONFIG = {
+    "architectures": ["GPT2LMHeadModel"], "model_type": "gpt2", "n_embd": 768,
+    "n_layer": 12, "n_head": 12, "vocab_size": 50257, "n_positions": 1024,
+    "n_ctx": 1024, "layer_norm_epsilon": 1e-5, "initializer_range": 0.02}
+HF_TRAIN_STEPS = 4
+HF_PROFILE = "2-3"  # torch.profiler over step 2 (steps [2, 3))
+# the Mistral generator's port leaves -> (HF key, transposed on import)
+MISTRAL_LEAVES = {
+    "attn_norm": ("input_layernorm.weight", False),
+    "q_w": ("self_attn.q_proj.weight", True),
+    "k_w": ("self_attn.k_proj.weight", True),
+    "v_w": ("self_attn.v_proj.weight", True),
+    "o_w": ("self_attn.o_proj.weight", True),
+    "mlp_norm": ("post_attention_layernorm.weight", False),
+    "gate_w": ("mlp.gate_proj.weight", True),
+    "up_w": ("mlp.up_proj.weight", True),
+    "down_w": ("mlp.down_proj.weight", True)}
+
+
+def hf_init(torch, g, dev, dtype):
+    """-> (w(shape), ones(n), zeros(n)): HF's init at ``initializer_range``
+    0.02 (normal weights, unit norm scales, zero biases), made on the card
+    from ``g`` and returned on the host."""
+    def w(*shape):
+        return torch.empty(shape, dtype=dtype, device=dev).normal_(
+            0.0, 0.02, generator=g).cpu()
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=dtype)
+
+    return w, ones, zeros
+
+
+def write_hf_dir(path: str, config: dict) -> None:
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=1)
+
+
+def write_bge_large(torch, g, dev, path: str) -> None:
+    """bge-large-en's geometry as a ``BertModel`` save: float32 weights in
+    ``pytorch_model.bin`` (as the published model ships), the pooler
+    included (the import ignores it)."""
+    c = BGE_LARGE_CONFIG
+    h, f = c["hidden_size"], c["intermediate_size"]
+    w, ones, zeros = hf_init(torch, g, dev, torch.float32)
+    sd = {"embeddings.word_embeddings.weight": w(c["vocab_size"], h),
+          "embeddings.position_embeddings.weight": w(
+              c["max_position_embeddings"], h),
+          "embeddings.token_type_embeddings.weight": w(c["type_vocab_size"],
+                                                       h),
+          "embeddings.LayerNorm.weight": ones(h),
+          "embeddings.LayerNorm.bias": zeros(h)}
+    for i in range(c["num_hidden_layers"]):
+        pre = f"encoder.layer.{i}."
+        for name, (n_out, n_in) in (
+                ("attention.self.query", (h, h)),
+                ("attention.self.key", (h, h)),
+                ("attention.self.value", (h, h)),
+                ("attention.output.dense", (h, h)),
+                ("intermediate.dense", (f, h)),
+                ("output.dense", (h, f))):
+            sd[pre + name + ".weight"] = w(n_out, n_in)
+            sd[pre + name + ".bias"] = zeros(n_out)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[pre + name + ".weight"] = ones(h)
+            sd[pre + name + ".bias"] = zeros(h)
+    sd["pooler.dense.weight"] = w(h, h)
+    sd["pooler.dense.bias"] = zeros(h)
+    write_hf_dir(path, c)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+
+
+def write_mistral(torch, g, dev, path: str, layers: int) -> int:
+    """Mistral-7B-v0.1's widths as a ``MistralForCausalLM`` save: bf16
+    weights in sharded safetensors (4 layers a shard) with
+    ``model.safetensors.index.json``; -> bytes written."""
+    c = dict(MISTRAL_7B_CONFIG, num_hidden_layers=layers)
+    h, f, v = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    kv = c["num_key_value_heads"] * h // c["num_attention_heads"]
+    w, ones, _ = hf_init(torch, g, dev, torch.bfloat16)
+    write_hf_dir(path, c)
+    groups = [list(range(i, min(i + 4, layers)))
+              for i in range(0, layers, 4)]
+    weight_map, total = {}, 0
+    for n, group in enumerate(groups):
+        sd = {"model.embed_tokens.weight": w(v, h)} if n == 0 else {}
+        for i in group:
+            pre = f"model.layers.{i}."
+            sd.update({
+                pre + "input_layernorm.weight": ones(h),
+                pre + "self_attn.q_proj.weight": w(h, h),
+                pre + "self_attn.k_proj.weight": w(kv, h),
+                pre + "self_attn.v_proj.weight": w(kv, h),
+                pre + "self_attn.o_proj.weight": w(h, h),
+                pre + "post_attention_layernorm.weight": ones(h),
+                pre + "mlp.gate_proj.weight": w(f, h),
+                pre + "mlp.up_proj.weight": w(f, h),
+                pre + "mlp.down_proj.weight": w(h, f)})
+        if n == len(groups) - 1:
+            sd["model.norm.weight"] = ones(h)
+            sd["lm_head.weight"] = w(v, h)
+        name = f"model-{n + 1:05d}-of-{len(groups):05d}.safetensors"
+        write_safetensors(os.path.join(path, name), sd,
+                          metadata={"format": "pt"})
+        weight_map.update({k: name for k in sd})
+        total += sum(t.numel() * t.element_size() for t in sd.values())
+        del sd
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f, indent=1)
+    return total
+
+
+def write_gpt2(torch, g, dev, path: str) -> None:
+    """gpt2's published config as a ``GPT2LMHeadModel`` save: float32
+    weights in one ``model.safetensors``, Conv1D (in, out) layouts, the
+    head tied (absent)."""
+    c = GPT2_CONFIG
+    h, v = c["n_embd"], c["vocab_size"]
+    w, ones, zeros = hf_init(torch, g, dev, torch.float32)
+    sd = {"transformer.wte.weight": w(v, h),
+          "transformer.wpe.weight": w(c["n_positions"], h)}
+    for i in range(c["n_layer"]):
+        pre = f"transformer.h.{i}."
+        sd.update({
+            pre + "ln_1.weight": ones(h), pre + "ln_1.bias": zeros(h),
+            pre + "attn.c_attn.weight": w(h, 3 * h),
+            pre + "attn.c_attn.bias": zeros(3 * h),
+            pre + "attn.c_proj.weight": w(h, h),
+            pre + "attn.c_proj.bias": zeros(h),
+            pre + "ln_2.weight": ones(h), pre + "ln_2.bias": zeros(h),
+            pre + "mlp.c_fc.weight": w(h, 4 * h),
+            pre + "mlp.c_fc.bias": zeros(4 * h),
+            pre + "mlp.c_proj.weight": w(4 * h, h),
+            pre + "mlp.c_proj.bias": zeros(h)})
+    sd["transformer.ln_f.weight"] = ones(h)
+    sd["transformer.ln_f.bias"] = zeros(h)
+    write_hf_dir(path, c)
+    write_safetensors(os.path.join(path, "model.safetensors"), sd,
+                      metadata={"format": "pt"})
+
+
+def trace_summary(trace_path: str) -> dict:
+    """A ``torch.profiler`` Chrome trace -> the device's idle share (one
+    minus the union of CUDA kernel intervals over the trace's window, its
+    first event's start to its last event's end), the annotations' summed
+    ms, the CUDA runtime calls' summed ms (the five largest) and the five
+    longest single CPU ops."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    lo = min(float(e["ts"]) for e in events)
+    hi = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    kernels = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                     for e in events if e.get("cat") == "kernel")
+    busy, end = 0.0, -math.inf
+    for a, b in kernels:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+
+    def summed(cat):
+        out = {}
+        for e in events:
+            if e.get("cat") == cat:
+                out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e3
+        return out
+
+    runtime = summed("cuda_runtime")
+    ops = sorted((e for e in events if e.get("cat") == "cpu_op"),
+                 key=lambda e: -e["dur"])[:5]
+    return {"window_ms": (hi - lo) / 1e3, "kernel_busy_ms": busy / 1e3,
+            "kernels": len(kernels),
+            "idle_share": 1.0 - busy / (hi - lo) if hi > lo else 1.0,
+            "annotations_ms": summed("user_annotation"),
+            "runtime_top_ms": dict(sorted(runtime.items(),
+                                          key=lambda kv: -kv[1])[:5]),
+            "longest_ops_ms": [(e["name"], e["dur"] / 1e3) for e in ops]}
+
+
+def log_trace(path: str) -> dict:
+    t = trace_summary(path)
+    log(f"  trace {os.path.basename(path)} "
+        f"({os.path.getsize(path) / 2**20:.1f} MiB): window "
+        f"{t['window_ms']:.1f} ms, {t['kernels']} kernels busy "
+        f"{t['kernel_busy_ms']:.1f} ms, device idle share "
+        f"{t['idle_share']:.4f}")
+    log("    annotations " + ", ".join(
+        f"{k} {v:.1f}" for k, v in t["annotations_ms"].items())
+        + " ms; CUDA runtime " + ", ".join(
+            f"{k} {v:.1f}" for k, v in t["runtime_top_ms"].items())
+        + " ms; longest ops " + ", ".join(
+            f"{k} {v:.1f}" for k, v in t["longest_ops_ms"]) + " ms")
+    return t
+
+
+def check_rerank(torch, np, call, chunk: int) -> dict:
+    """One recorded ``RAGModel._retrieve_rerank`` call against a rescoring
+    of its candidates: the same search, tokenisation and tower as the call
+    (the port's own), their embeddings in the same chunks, f64 dot
+    products; the returned ids are the rescoring's top-k (up to candidates
+    whose scores tie within 1e-6) and each returned score is its rescored
+    value within 1e-5. So this holds the re-sort and the f32 scoring only;
+    the candidates' tokenisation and tower are held against the JAX
+    package on the CPU (tests/test_torch_rerank_profile.py)."""
+    (model, index, params, q_emb, topk, posterior), _, (ids, scores) = call
+    n_rr = max(model.opt.n_to_rerank_with_retrieve_with_rerank, topk)
+    _, cand = index.search(q_emb, n_rr)
+    cand = cand.cpu().numpy()
+    p_ids, p_mask = model._tokenize_passage_matrix(model.passage_texts(cand))
+    p_ids = p_ids.reshape(-1, p_ids.shape[-1])
+    p_mask = p_mask.reshape(-1, p_mask.shape[-1])
+    tower = (model._posterior_params(params) if posterior
+             else params["retriever"])
+    with torch.no_grad():
+        emb = torch.cat([tower.embed_passages(
+            torch.from_numpy(p_ids[i:i + chunk]).to(model.device),
+            torch.from_numpy(p_mask[i:i + chunk]).to(model.device)).float()
+            for i in range(0, len(p_ids), chunk)]).cpu().numpy()
+    exact = np.einsum("bh,bkh->bk", q_emb.double().cpu().numpy(),
+                      emb.astype(np.float64).reshape(*cand.shape, -1))
+    worst, boundary_ties = 0.0, 0
+    for r in range(cand.shape[0]):
+        order = np.argsort(-exact[r], kind="stable")
+        want = set(cand[r][order[:topk]].tolist())
+        if set(ids[r].tolist()) != want:
+            gap = exact[r][order[topk - 1]] - exact[r][order[topk]]
+            if gap > 1e-6:
+                raise AssertionError(f"rerank row {r}: top-{topk} ids differ "
+                                     f"from the rescoring's")
+            boundary_ties += 1
+        pos = {int(c): j for j, c in enumerate(cand[r])}
+        got = np.array([exact[r][pos[int(i)]] for i in ids[r]])
+        worst = max(worst, float(np.abs(got - scores[r]).max()))
+    if worst > 1e-5:
+        raise AssertionError(f"rerank scores off the exact ones by {worst}")
+    return {"rows": int(cand.shape[0]), "candidates": int(cand.shape[1]),
+            "topk": int(topk), "posterior": bool(posterior),
+            "max_abs_err": worst, "boundary_ties": boundary_ties}
+
+
+def check_generator_files(torch, np, gen_tree, path: str,
+                          layers: int) -> int:
+    """The checkpoint's generator base against the bf16 files, leaf by leaf
+    (transposed where the import transposes): bit-identical after the
+    cast; -> leaves compared."""
+    from jsa_rag_tpu_torch.models.hf_import import read_state_dict
+
+    sd = read_state_dict(path)
+    pairs = [(gen_tree["embed"], "model.embed_tokens.weight", False),
+             (gen_tree["final_norm"], "model.norm.weight", False),
+             (gen_tree["lm_head"], "lm_head.weight", True)]
+    for i in range(layers):
+        for name, (key, t) in MISTRAL_LEAVES.items():
+            pairs.append((gen_tree["layers"][i][name],
+                          f"model.layers.{i}.{key}", t))
+    for leaf, key, transposed in pairs:
+        want = sd[key].float()
+        want = want.T if transposed else want
+        if not torch.equal(torch.from_numpy(np.asarray(leaf)), want):
+            raise AssertionError(f"generator leaf {key} differs from the "
+                                 f"file's value")
+    return len(pairs)
+
+
+def hf_phase(torch, mt, g, dev) -> dict:
+    """Phase 21: train and evaluate from HF directories at full width in
+    bf16 parameter storage with --retrieve_with_rerank and
+    --profile_steps; -> B2's numbers from this path."""
+    import numpy as np
+
+    from jsa_rag_tpu_torch import evaluate as evaluate_cli
+    from jsa_rag_tpu_torch import model_io
+    from jsa_rag_tpu_torch.config import Options
+    from jsa_rag_tpu_torch.data import PassageStore
+    from jsa_rag_tpu_torch.index import flat
+    from jsa_rag_tpu_torch.index.flat import ShardedFlatIndex
+    from jsa_rag_tpu_torch.train import __main__ as train_cli
+    from jsa_rag_tpu_torch.train import modes, rag_model
+    from jsa_rag_tpu_torch.train.checkpoint import load_checkpoint
+    from jsa_rag_tpu_torch.train.optim import AdamW, named_leaves
+
+    log(f"[21] train and evaluate from HF directories: bge-large-en towers, "
+        f"a Mistral-7B-width generator ({HF_GEN_LAYERS} of 32 layers), gpt2;"
+        f" bf16 parameter storage, --retrieve_with_rerank, --profile_steps "
+        f"{HF_PROFILE}; hybrid index {N_INDEX} x {DIM}")
+    if HF_GEN_LAYERS < 32:
+        log(f"  cut: the generator's depth, {HF_GEN_LAYERS} of 32 layers "
+            f"(widths as published): each layer adds 1.22 GiB to the "
+            f"phase's disk peak (32 layers pass the 45 GiB a run may "
+            f"write), and past 8 layers the phase outgrows ~5 minutes and "
+            f"bf16 rounding nears the greedy check's 0.1-nat bound")
+    log("  no HF tokenizer on this machine (no transformers): the "
+        "SimpleTokenizer fallback, --max_vocab 30522")
+    work = tempfile.mkdtemp(prefix="chip_smoke_hf_")
+    try:
+        t0 = time.perf_counter()
+        bge = os.path.join(work, "bge-large-en")
+        mistral = os.path.join(work, "mistral-7b")
+        gpt2 = os.path.join(work, "gpt2")
+        write_bge_large(torch, g, dev, bge)
+        gen_bytes = write_mistral(torch, g, dev, mistral, HF_GEN_LAYERS)
+        write_gpt2(torch, g, dev, gpt2)
+        log(f"  wrote the HF directories ({gen_bytes / 2**30:.2f} GiB of "
+            f"bf16 generator shards): {time.perf_counter() - t0:.1f} s")
+        log_disk("the HF directories")
+
+        store = PassageStore.synthetic(N_TEXT, seed=SEED)
+        passages = os.path.join(work, "passages.jsonl")
+        write_passages(passages, store)
+        train_data = write_questions(torch, os.path.join(work, "train.jsonl"),
+                                     store, 64, SEED + 21)
+        questions = write_questions(torch, os.path.join(work, "q16.jsonl"),
+                                    store, 16, SEED + 22)
+        hf = ["--retriever_model_path", bge, "--generator_model_path",
+              mistral, "--param_dtype", "bfloat16", "--max_vocab", "30522",
+              "--retrieve_with_rerank", "true", "--index_dtype", "hybrid",
+              "--device", dev.type, "--passages", passages,
+              "--checkpoint_dir", os.path.join(work, "ck")]
+
+        # the index: the first N_TEXT rows from the imported passage tower
+        # (its generator left out), the rest clustered
+        t0 = time.perf_counter()
+        model, params, _ = model_io.load_or_initialize_model(
+            Options.from_args(FLAGSHIP + hf + [
+                "--generator_model_path", "none", "--model_size", "tiny",
+                "--name", "build"]), store)
+        index = ShardedFlatIndex(N_INDEX, DIM, "hybrid", device=dev)
+        e32 = torch.empty((N_INDEX, DIM), dtype=torch.float32, device=dev)
+        stats = model.build_index(KeepFloats(index, e32), params)
+        fill_clustered(torch, g, index, e32, N_TEXT, N_INDEX)
+        index_path = os.path.join(work, "index_hybrid")
+        index.save(index_path, n_files=16)
+        del model, params, index, e32
+        torch.cuda.empty_cache()
+        log(f"  index: build_index over {N_TEXT} passages with the imported "
+            f"bge tower {stats['runtime/indexing'][0]:.1f} s; with the "
+            f"clustered rows and save {time.perf_counter() - t0:.1f} s")
+
+        # ------------------------------------------------------- training
+        # both remat flags: the towers' activations over the union (~25
+        # GB) beside the generator and its LoRA-merged copy (13.5 GiB
+        # each) do not fit one card; remat changes memory, not numbers
+        argv = FLAGSHIP + hf + [
+            "--use_gradient_checkpoint_generator", "true",
+            "--use_gradient_checkpoint_retriever", "true",
+            "--profile_steps", HF_PROFILE, "--train_data", train_data,
+            "--load_index_path", index_path,
+            "--total_steps", str(HF_TRAIN_STEPS), "--warmup_steps", "2",
+            "--save_freq", str(HF_TRAIN_STEPS), "--log_freq", "1",
+            "--eval_freq", "1000000", "--refresh_index", "0-40000:40000",
+            "--name", "train-hf"]
+        load_s = []
+        real_load = train_cli.load_or_initialize_model
+
+        def timed_load(*a, **kw):
+            t = time.perf_counter()
+            out = real_load(*a, **kw)
+            torch.cuda.synchronize()
+            load_s.append(time.perf_counter() - t)
+            return out
+
+        parts = [(modes, "_embed_rows", "union embed"),
+                 (modes, "_per_row_ce", "generator CE"),
+                 (torch.autograd, "grad", "backward"),
+                 (AdamW, "step", "optimizer")]
+        train_cli.load_or_initialize_model = timed_load
+        try:
+            # the rerank runs in the batch build, outside the step's span:
+            # its own device span per call (the host's tokenisation inside)
+            with recording(train_cli, "train") as loops, device_spans(
+                    [(rag_model.RAGModel, "_retrieve_rerank",
+                      "rerank")]) as rr_spans:
+                run = timed_train_main(torch, argv, mt.scan_topt_int8,
+                                       (flat, "mips_topk_int8_t", 1), parts)
+        finally:
+            train_cli.load_or_initialize_model = real_load
+        rerank_ms = [a.elapsed_time(b) for a, b in rr_spans["rerank"]]
+        launches_train = run["launches"]
+        run_dir = os.path.join(work, "ck", "train-hf")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        log(f"  train main: {run['main_s']:.1f} s, HF load {load_s[0]:.1f} "
+            f"s, {run['final_step']} steps, B2 launches {launches_train}; "
+            f"peak memory {run['peak'] / 2**30:.2f} GiB of "
+            f"{run['total'] / 2**30:.2f} GiB, allocator retries "
+            f"{run['retries']}")
+        log_disk("training (its peak: the HF directories, the index and the "
+                 "checkpoint)")
+        if run["final_step"] != HF_TRAIN_STEPS or launches_train < 1:
+            raise AssertionError("training did not run its steps through B2")
+        steps = step_records(run, metrics, ("loss/train_loss",
+                                            "loss/generator_loss",
+                                            "accept_rate"), HF_TRAIN_STEPS)
+        log(f"  rerank spans ({len(rerank_ms)} calls, 2 a step): " + ", ".join(
+            f"{ms:.1f}" for ms in rerank_ms) + " ms")
+        mark_profiled(steps, HF_PROFILE, "train-hf")
+        warm = steps[-1]  # past the profiler's start and stop
+        log(f"  warm step {warm['step']}: device {warm['device_ms']:.1f} ms, "
+            f"wall {1e3 * warm['wall_s']['train_step']:.1f} ms")
+
+        # stored dtypes: every parameter bf16, Adam's mu and nu f32
+        (_, _, params, tx, _), _, _ = loops[0]
+        dtypes = {t.dtype for t in named_leaves(params).values()}
+        moments = {t.dtype for t in tx.mu + tx.nu if t is not None}
+        log(f"  stored parameters {sorted(map(str, dtypes))}, Adam moments "
+            f"{sorted(map(str, moments))} over {len(tx.leaves)} leaves")
+        if dtypes != {torch.bfloat16} or moments != {torch.float32}:
+            raise AssertionError("parameters not bf16 or moments not f32")
+        del loops, params, tx
+        torch.cuda.empty_cache()
+
+        # B2 against its plain version on the first rerank search (k=128)
+        (q0, codes, scales, k0), kw0, _ = run["calls"][0]
+        tile, t_ = mt.scan_geometry(codes.shape[0],
+                                    min(kw0["refine"] * k0, codes.shape[0]),
+                                    kw0["pool_n"])
+        qv, qs = mt.quantize_int8(q0.float())
+        max_err = compare_int8(mt, qv, qs, codes, scales, kw0["valid_n"],
+                               tile, t_, f"main's first rerank search: "
+                               f"B={q0.shape[0]} k={k0} refine="
+                               f"{kw0['refine']} T={t_}")
+        if k0 != 128:
+            raise AssertionError(f"the first search took k={k0}, not 128")
+        del run["calls"], q0, codes, scales, qv, qs
+
+        # the trace of the profiled step
+        idle = log_trace(os.path.join(run_dir, "profile",
+                                      f"steps_{HF_PROFILE}.pt.trace.json"))
+        if not {"retrieve+tokenize", "train"} <= set(idle["annotations_ms"]):
+            raise AssertionError("the trace lacks the step annotations")
+
+        # the checkpoint: the generator base as the files hold it
+        t0 = time.perf_counter()
+        state = load_checkpoint(run_dir)
+        n_leaves = check_generator_files(torch, np, state["params"]
+                                         ["generator"], mistral,
+                                         HF_GEN_LAYERS)
+        log(f"  checkpoint step {state['step']}: {n_leaves} generator base "
+            f"leaves bit-identical to the bf16 files "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del state
+
+        # ------------------------------------------------------ evaluation
+        eval_argv = FLAGSHIP + hf + [
+            "--model_path", run_dir, "--load_index_path", index_path,
+            "--eval_data", questions, "--per_gpu_batch_size", "8",
+            "--generation_max_length", "32", "--name", "eval-hf"]
+        t0 = time.perf_counter()
+        with recording(rag_model.RAGModel, "_retrieve_rerank", 1) as rr, \
+                recording(rag_model, "greedy_generate", 1) as decodes:
+            mt.scan_topt_int8.launches = 0  # main path starts
+            results = evaluate_cli.main(eval_argv)
+            launches_eval = mt.scan_topt_int8.launches  # main path ends
+        ev_metrics = results["q16.jsonl"]
+        log(f"  evaluate main on the checkpoint: "
+            f"{time.perf_counter() - t0:.1f} s, B2 launches {launches_eval}, "
+            f"metrics " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                    sorted(ev_metrics.items())))
+        if launches_eval < 1 or not all(math.isfinite(v)
+                                        for v in ev_metrics.values()):
+            raise AssertionError("evaluate: no B2 launch or non-finite "
+                                 "metrics")
+        rerank = check_rerank(torch, np, rr[0], 256)
+        log(f"  rerank of main's first batch: {rerank['rows']} queries x "
+            f"{rerank['candidates']} candidates, the re-sort: "
+            f"top-{rerank['topk']} ids equal to an f64 rescoring of the same "
+            f"candidates with the same tower ({rerank['boundary_ties']} "
+            f"rows tied at the boundary), scores within "
+            f"{rerank['max_abs_err']:.3g}")
+        exact, n_steps, worst = check_greedy_rows(torch, decodes[0])
+        log(f"  8 greedy rows of the Mistral-width generator against a "
+            f"cache-free forward: {exact}/{n_steps} steps the exact argmax, "
+            f"log-probs within {worst:.4f}")
+        del rr, decodes
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------------------ gpt2
+        q8 = write_questions(torch, os.path.join(work, "q8.jsonl"), store, 8,
+                             SEED + 23)
+        gpt2_argv = FLAGSHIP + hf + [
+            "--generator_model_path", gpt2, "--generator_model_type", "gpt2",
+            "--retrieve_with_rerank", "false",
+            "--load_index_path", index_path, "--eval_data", q8,
+            "--per_gpu_batch_size", "8", "--generation_max_length", "32",
+            "--name", "eval-gpt2"]
+        t0 = time.perf_counter()
+        with recording(rag_model, "greedy_generate", 1) as decodes:
+            g_metrics = evaluate_cli.main(gpt2_argv)["q8.jsonl"]
+        if not all(math.isfinite(v) for v in g_metrics.values()):
+            raise AssertionError(f"gpt2: non-finite metrics {g_metrics}")
+        g_exact, g_steps, g_worst = check_greedy_rows(torch, decodes[0])
+        log(f"  gpt2 evaluate from its HF directory: "
+            f"{time.perf_counter() - t0:.1f} s; 8 greedy rows against a "
+            f"cache-free forward: {g_exact}/{g_steps} steps the exact "
+            f"argmax, log-probs within {g_worst:.4f}")
+        del decodes
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"launches_train": launches_train, "launches_eval": launches_eval,
+            "max_abs_err": max_err,
+            "generator_layers": HF_GEN_LAYERS,
+            "hf_load_s": load_s[0], "train_main_s": run["main_s"],
+            "rerank_span_ms": rerank_ms,
+            "peak_memory_bytes": run["peak"], "train_steps": steps,
+            "profile": idle, "rerank": rerank,
+            "greedy_exact_steps": [exact, n_steps],
+            "gpt2_greedy_exact_steps": [g_exact, g_steps],
+            "eval_metrics": ev_metrics, "gpt2_metrics": g_metrics}
+
+
 def row_kernels(bp: dict, errs: dict) -> list:
     """B6's-B9's entries of the kernels line from phases 19 and 20, each
     beside the bench line that drove it."""
@@ -2537,6 +3165,16 @@ def main() -> None:
     torch.cuda.empty_cache()
     row_errs = rows_phase(torch, mt, ms, g, dev)
     rows = row_kernels(bench_phase(torch, mt, ms, dev, row_errs), row_errs)
+    torch.cuda.empty_cache()
+    hf = hf_phase(torch, mt, g, dev)
+    # B2's launches on every path that drove it: phase 11's jsa steps, then
+    # phase 21's training and evaluation
+    b2["launches_by_path"] = {"train_jsa_hybrid": b2["launches"],
+                              "train_hf_rerank": hf["launches_train"],
+                              "evaluate_hf_rerank": hf["launches_eval"]}
+    b2["launches"] = sum(b2["launches_by_path"].values())
+    b2["max_abs_err"] = max(b2["max_abs_err"], hf["max_abs_err"])
+    b2["hf"] = hf
 
     log(f"smoke took {time.perf_counter() - t_start:.0f} s")
     log(smi)

@@ -85,13 +85,11 @@ def _map_tree(tree, fn):
     return fn(tree)
 
 
-def lm_params_from_numpy(tree: dict, device="cpu") -> dict:
-    """JAX generator pytree (numpy or array-like leaves) -> the port's
-    parameter dict of f32 tensors on ``device``."""
-    if any("qkv_w" in layer for layer in tree["layers"]):
-        raise NotImplementedError("gpt2 generator trees are not ported yet: "
-                                  "ROADMAP queue A item 12")
-    return _map_tree(tree, lambda v: _tensor(v).to(device))
+def lm_params_from_numpy(tree: dict, device="cpu",
+                         dtype=torch.float32) -> dict:
+    """JAX generator pytree (llama or gpt2; numpy or array-like leaves) ->
+    the port's parameter dict of ``dtype`` tensors on ``device``."""
+    return _map_tree(tree, lambda v: _tensor(v).to(device, dtype))
 
 
 def lm_params_to_numpy(params: dict) -> dict:

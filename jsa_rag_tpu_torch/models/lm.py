@@ -1,30 +1,46 @@
-"""Decoder-only LM (llama/mistral-family geometry) for generation.
+"""Decoder-only LM (llama/mistral-family and gpt2 geometry) for
+generation.
 
-Counterpart of ``jsa_rag_tpu/models/lm.py``, llama architecture, inference
-only: RMSNorm + rotary positions + grouped-query attention + SwiGLU, one
-``lm_logits`` forward for CE and scoring, and greedy decoding over a
-preallocated KV cache. Plain functions on tensors over a parameter dict with
-the JAX package's key names and (in, out) weight layout (``x @ w``), so
-``convert.py`` moves a numpy pytree into either package:
-``embed``, ``final_norm``, ``lm_head`` (untied) and ``layers.<i>.{attn_norm,
-q_w, k_w, v_w, o_w, mlp_norm, gate_w, up_w, down_w}``.
+Counterpart of ``jsa_rag_tpu/models/lm.py``, both architectures:
 
-Numerics follow the JAX package: RMSNorm in f32 cast back to the activation
-dtype, rotary angles and products in f32, attention logits and the unembed
-accumulated in f32 (bf16 products are exact in f32; on the card the f32
-products run with TF32 off), a -1e9 additive mask, f32 softmax cast to the
-activation dtype. The matmul weights are cast to ``cfg.dtype`` once per call
-(the JAX package casts inside each matmul, which gives the same numbers).
+- llama/mistral: RMSNorm + rotary positions + grouped-query attention +
+  SwiGLU; leaves ``embed``, ``final_norm``, ``lm_head`` (untied) and
+  ``layers.<i>.{attn_norm, q_w, k_w, v_w, o_w, mlp_norm, gate_w, up_w,
+  down_w}``;
+- gpt2 (``lm.py:204-289``): learned positions (clipped into the table),
+  pre-LayerNorm, a fused biased qkv projection over full multi-head
+  attention, a tanh-gelu MLP and the head tied to the embedding; leaves
+  ``embed``, ``pos_embed``, ``final_norm``, ``final_norm_b`` and
+  ``layers.<i>.{ln1_s, ln1_b, qkv_w, qkv_b, o_w, o_b, ln2_s, ln2_b, fc_w,
+  fc_b, proj_w, proj_b}``.
 
-Training: the loss path is differentiable back to the f32 leaves through
-the casts. With ``cfg.dropout > 0`` and an ``rng`` (a CPU generator),
-attention-probability dropout runs in every layer (HF llama's
-``attention_dropout``, as the JAX package places it), from per-layer seeds
-drawn up front; ``cfg.remat`` recomputes each block in the backward pass
+One ``lm_logits`` forward serves CE and scoring, and greedy decoding runs
+over a preallocated KV cache (full MHA for gpt2). Plain functions on tensors
+over a parameter dict with the JAX package's key names and (in, out) weight
+layout (``x @ w``), so ``convert.py`` moves a numpy pytree into either
+package.
+
+Numerics follow the JAX package: RMSNorm and LayerNorm in f32 cast back to
+the activation dtype, rotary angles and products in f32, attention logits
+and the unembed accumulated in f32 (bf16 products are exact in f32; on the
+card the f32 products run with TF32 off), a -1e9 additive mask, f32 softmax
+cast to the activation dtype. The matmul weights and biases are cast to
+``cfg.dtype`` once per call (the JAX package casts inside each matmul,
+which gives the same numbers); norm scales stay as stored.
+
+Training: the loss path is differentiable back to the stored leaves
+through the casts. With ``cfg.dropout > 0`` and an ``rng`` (a CPU
+generator), dropout runs where the JAX package places it (llama: the
+attention probabilities, HF's ``attention_dropout``; gpt2: the embeddings,
+the attention probabilities and both residual branches) from seeds drawn up
+front; ``cfg.remat`` recomputes each block in the backward pass
 (``torch.utils.checkpoint``) with the same seeds.
 
-Not ported yet (ROADMAP queue A item 12): the gpt2 architecture and
-``beam_generate``.
+Token ids must lie below ``cfg.vocab_size``: ``model_io`` refuses a
+tokenizer with more ids than the embedding has rows (the JAX package's
+``jnp.take`` reads NaN rows for them instead).
+
+Not ported yet (ROADMAP queue A item 12): ``beam_generate``.
 """
 
 from __future__ import annotations
@@ -35,11 +51,17 @@ import math
 import torch
 import torch.utils.checkpoint
 
-from .bert import dropout, split_seeds
+from .bert import _layer_norm, dropout, split_seeds
 
 IGNORE_INDEX = -100  # label mask value, same constant as the reference
 A12 = "is not ported yet: ROADMAP queue A item 12"
 MATMUL_WEIGHTS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
+# gpt2's projections and their biases, cast to the activation dtype
+GPT2_WEIGHTS = ("qkv_w", "qkv_b", "o_w", "o_b", "fc_w", "fc_b", "proj_w",
+                "proj_b")
+CAST_LEAVES = frozenset(MATMUL_WEIGHTS + GPT2_WEIGHTS)
+ARCHS = ("llama", "gpt2")
+GPT2_LN_EPS = 1e-5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,21 +87,40 @@ class LMConfig:
 
 
 def _check_arch(cfg: LMConfig) -> None:
-    if cfg.arch != "llama":
-        raise NotImplementedError(f"generator arch {cfg.arch!r} {A12}")
+    if cfg.arch not in ARCHS:
+        raise ValueError(f"generator arch {cfg.arch!r}: one of {ARCHS}")
 
 
 def lm_init(cfg: LMConfig, *, device, generator: torch.Generator) -> dict:
-    """N(0, 0.02) f32 weights, unit norm scales, the JAX tree's shapes."""
+    """N(0, 0.02) f32 weights, unit norm scales, zero biases, the JAX
+    tree's shapes."""
     _check_arch(cfg)
 
     def w(shape):
         return 0.02 * torch.randn(shape, generator=generator, device=device)
 
-    def ones():
-        return torch.ones((cfg.hidden,), device=device)
+    def ones(n=cfg.hidden):
+        return torch.ones((n,), device=device)
+
+    def zeros(n=cfg.hidden):
+        return torch.zeros((n,), device=device)
 
     hd = cfg.head_dim
+    if cfg.arch == "gpt2":
+        h, f = cfg.hidden, cfg.intermediate
+        p = {"embed": w((cfg.vocab_size, h)),
+             "pos_embed": w((cfg.max_positions, h)),
+             "final_norm": ones(), "final_norm_b": zeros(), "layers": []}
+        for _ in range(cfg.layers):
+            p["layers"].append({
+                "ln1_s": ones(), "ln1_b": zeros(),
+                "qkv_w": w((h, 3 * h)), "qkv_b": zeros(3 * h),
+                "o_w": w((h, h)), "o_b": zeros(),
+                "ln2_s": ones(), "ln2_b": zeros(),
+                "fc_w": w((h, f)), "fc_b": zeros(f),
+                "proj_w": w((f, h)), "proj_b": zeros(),
+            })
+        return p  # the head is tied to the embedding
     p = {"embed": w((cfg.vocab_size, cfg.hidden)), "final_norm": ones(),
          "layers": []}
     for _ in range(cfg.layers):
@@ -99,17 +140,23 @@ def lm_init(cfg: LMConfig, *, device, generator: torch.Generator) -> dict:
     return p
 
 
+def _tied(cfg: LMConfig) -> bool:
+    return cfg.tie_embeddings or cfg.arch == "gpt2"
+
+
 def _cast_params(params: dict, cfg: LMConfig) -> dict:
-    """The matmul weights and the embedding table in ``cfg.dtype``; the
-    head rounded to ``cfg.dtype`` and held in f32 for the f32-accumulated
-    unembed; the norm scales as stored (f32), as in the JAX package, where
-    ``y * scale`` runs in f32."""
+    """The matmul weights (and gpt2's biases) and the embedding tables in
+    ``cfg.dtype``; the head rounded to ``cfg.dtype`` and held in f32 for
+    the f32-accumulated unembed; the norm scales as stored, as in the JAX
+    package, where ``y * scale`` runs in f32."""
     dt = cfg.dtype
     out = {k: v for k, v in params.items() if k != "layers"}
     out["embed"] = params["embed"].to(dt)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if "pos_embed" in params:
+        out["pos_embed"] = params["pos_embed"].to(dt)
+    head = params["embed"].T if _tied(cfg) else params["lm_head"]
     out["head"] = head.to(dt).to(torch.float32)
-    out["layers"] = [{k: (v.to(dt) if k in MATMUL_WEIGHTS else v)
+    out["layers"] = [{k: (v.to(dt) if k in CAST_LEAVES else v)
                       for k, v in layer.items()}
                      for layer in params["layers"]]
     return out
@@ -185,12 +232,79 @@ def _block(layer, cfg: LMConfig, x, positions, bias, cache=None,
     return x + _mlp(layer, _rms_norm(x, layer["mlp_norm"], cfg.rms_eps))
 
 
+def _gpt2_attention(layer, cfg: LMConfig, x, bias, cache=None,
+                    cache_len: int = 0, seed=None):
+    """gpt2 attention (``lm.py:204-229``): fused biased qkv, no rotary,
+    full MHA; the cache as in ``_attention``."""
+    b, s, h = x.shape
+    nh, hd = cfg.heads, cfg.head_dim
+    qkv = x @ layer["qkv_w"] + layer["qkv_b"]
+    q, k, v = (t.reshape(b, s, nh, hd) for t in qkv.split(h, dim=-1))
+    if cache is not None:
+        ck, cv = cache
+        ck[:, cache_len:cache_len + s] = k
+        cv[:, cache_len:cache_len + s] = v
+        k, v = ck, cv
+    logits = torch.einsum("bqnd,bknd->bnqk", q.to(torch.float32),
+                          k.to(torch.float32)) / math.sqrt(hd)
+    probs = torch.softmax(logits + bias, dim=-1).to(x.dtype)
+    probs = dropout(probs, cfg.dropout, seed)
+    ctx = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(b, s, h)
+    return ctx @ layer["o_w"] + layer["o_b"]
+
+
+def _gpt2_block(layer, cfg: LMConfig, x, bias, cache=None,
+                cache_len: int = 0, seeds=(None, None, None)):
+    """``seeds``: the (attention probs, attention residual, MLP residual)
+    dropout seeds (``lm.py:232-243``)."""
+    a = _gpt2_attention(layer, cfg, _layer_norm(x, layer["ln1_s"],
+                                                layer["ln1_b"], GPT2_LN_EPS),
+                        bias, cache, cache_len, seeds[0])
+    x = x + dropout(a, cfg.dropout, seeds[1])
+    h = _layer_norm(x, layer["ln2_s"], layer["ln2_b"], GPT2_LN_EPS)
+    h = torch.nn.functional.gelu(h @ layer["fc_w"] + layer["fc_b"],
+                                 approximate="tanh")
+    h = h @ layer["proj_w"] + layer["proj_b"]
+    return x + dropout(h, cfg.dropout, seeds[2])
+
+
+def _embed_in(p: dict, cfg: LMConfig, input_ids, positions):
+    """Token embeddings in ``cfg.dtype``; gpt2 adds its learned position
+    rows, the positions clipped into the table (``lm.py:246-251``)."""
+    x = p["embed"][input_ids.long()]
+    if cfg.arch == "gpt2":
+        pos = positions.long().clamp(0, cfg.max_positions - 1)
+        x = x + p["pos_embed"][pos]
+    return x
+
+
+def _final_norm(p: dict, cfg: LMConfig, x):
+    if cfg.arch == "gpt2":
+        return _layer_norm(x, p["final_norm"], p["final_norm_b"],
+                           GPT2_LN_EPS)
+    return _rms_norm(x, p["final_norm"], cfg.rms_eps)
+
+
 def _unembed(p: dict, cfg: LMConfig, x):
     """f32 logits of the final-normed hidden states: the activation-dtype
     products are exact in f32 and summed there (the JAX package's
     ``preferred_element_type=f32``)."""
-    x = _rms_norm(x, p["final_norm"], cfg.rms_eps)
+    x = _final_norm(p, cfg, x)
     return x.to(torch.float32) @ p["head"]
+
+
+def _layer_fn(cfg: LMConfig):
+    """-> (block(layer, x, positions, bias, cache, cache_len, seeds), the
+    number of dropout seeds a layer takes)."""
+    if cfg.arch == "gpt2":
+        def block(layer, x, positions, bias, cache, cache_len, seeds):
+            return _gpt2_block(layer, cfg, x, bias, cache, cache_len, seeds)
+        return block, 3
+
+    def block(layer, x, positions, bias, cache, cache_len, seeds):
+        return _block(layer, cfg, x, positions, bias, cache, cache_len,
+                      seeds[0])
+    return block, 1
 
 
 def lm_logits(params: dict, cfg: LMConfig, input_ids, attention_mask,
@@ -202,19 +316,26 @@ def lm_logits(params: dict, cfg: LMConfig, input_ids, attention_mask,
     s = input_ids.shape[1]
     if positions is None:
         positions = positions_from_mask(attention_mask)
-    x = p["embed"][input_ids.long()]
+    x = _embed_in(p, cfg, input_ids, positions)
     causal = torch.tril(torch.ones((s, s), dtype=torch.bool,
                                    device=x.device))[None, None]
     keymask = attention_mask[:, None, None, :].bool()
     bias = torch.where(causal & keymask, 0.0, -1e9).to(torch.float32)
-    seeds = split_seeds(rng if cfg.dropout > 0.0 else None, cfg.layers)
-    for layer, seed in zip(p["layers"], seeds):
+    block, per = _layer_fn(cfg)
+    # gpt2 drops out its embeddings first (embd_pdrop), then 3 per layer
+    first = 1 if cfg.arch == "gpt2" else 0
+    seeds = split_seeds(rng if cfg.dropout > 0.0 else None,
+                        first + per * cfg.layers)
+    if first:
+        x = dropout(x, cfg.dropout, seeds[0])
+    for i, layer in enumerate(p["layers"]):
+        lseeds = tuple(seeds[first + per * i:first + per * (i + 1)])
         if cfg.remat and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(
-                _block, layer, cfg, x, positions, bias, None, 0, seed,
+                block, layer, x, positions, bias, None, 0, lseeds,
                 use_reentrant=False)
         else:
-            x = _block(layer, cfg, x, positions, bias, seed=seed)
+            x = block(layer, x, positions, bias, None, 0, lseeds)
     return _unembed(p, cfg, x)
 
 
@@ -255,9 +376,11 @@ def lm_sequence_logprob(params, cfg, input_ids, attention_mask, labels,
 # ------------------------------------------------------------------ decoding
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device):
     hd = cfg.head_dim
-    return [(torch.zeros((batch, max_len, cfg.kv_heads, hd), dtype=cfg.dtype,
+    # gpt2 attention is full MHA: its cache holds cfg.heads kv heads
+    nkv = cfg.heads if cfg.arch == "gpt2" else cfg.kv_heads
+    return [(torch.zeros((batch, max_len, nkv, hd), dtype=cfg.dtype,
                          device=device),
-             torch.zeros((batch, max_len, cfg.kv_heads, hd), dtype=cfg.dtype,
+             torch.zeros((batch, max_len, nkv, hd), dtype=cfg.dtype,
                          device=device))
             for _ in range(cfg.layers)]
 
@@ -271,15 +394,16 @@ def _forward_with_cache(p, cfg, input_ids, attention_mask, positions,
     takes the last, the same numbers)."""
     s = input_ids.shape[1]
     dev = input_ids.device
-    x = p["embed"][input_ids.long()]
+    x = _embed_in(p, cfg, input_ids, positions)
     k_pos = torch.arange(total_len, device=dev)[None, :]
     causal = (k_pos[:, None, :]
               <= (cache_len + torch.arange(s, device=dev))[None, :, None])
     keymask = attention_mask[:, None, :].bool()
     bias = torch.where((causal & keymask)[:, None], 0.0,
                        -1e9).to(torch.float32)
+    block, per = _layer_fn(cfg)
     for layer, lc in zip(p["layers"], cache):
-        x = _block(layer, cfg, x, positions, bias, lc, cache_len)
+        x = block(layer, x, positions, bias, lc, cache_len, (None,) * per)
     return _unembed(p, cfg, x[:, -1])
 
 

@@ -137,7 +137,12 @@ def _scan_cols(queries, cols, n: int, k: int, chunk: int, valid_n: int):
         all_i = torch.cat([ci, idx.expand(b, -1)], dim=1)
         cs, a = torch.topk(all_s, k, dim=1)
         ci = torch.gather(all_i, 1, a)
-    return cs, ci
+    # equal scores in ascending id order, as lax.top_k returns them
+    # (torch.topk leaves their order open)
+    ci, a = torch.sort(ci, dim=1)
+    cs, a2 = torch.sort(torch.gather(cs, 1, a), dim=1, descending=True,
+                        stable=True)
+    return cs, torch.gather(ci, 1, a2)
 
 
 # ------------------------------------------------------------ scan + emit

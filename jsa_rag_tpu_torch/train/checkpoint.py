@@ -14,10 +14,14 @@ write. With ``--save_optimizer`` the state also holds ``opt_state``: the
 port's ``AdamW.state_dict()`` (plain dicts of numpy arrays and ints, which
 the JAX package's ``load_checkpoint`` reads too).
 
-Leaves stored in float32 or float16 load; a tree saved under
-``--param_dtype bfloat16`` holds ml_dtypes bf16 arrays, which need the
-ml_dtypes package to unpickle and which the port does not carry — loading
-one raises. A JAX checkpoint saved with ``--save_optimizer`` pickles its
+Leaves are saved as float32 numpy arrays whatever their dtype: a bf16 leaf
+(``--param_dtype bfloat16``) as the float32 array of the same values, which
+is lossless, needs no ml_dtypes package and loads in both packages (the
+loader's ``param_dtype`` cast gives the same bits back). Leaves stored in
+float32 or float16 load; a JAX tree saved under ``--param_dtype bfloat16``
+holds ml_dtypes bf16 arrays, which load as float32 where ml_dtypes is
+installed and raise a clear error where it is not (the card). A JAX
+checkpoint saved with ``--save_optimizer`` pickles its
 ``opt_state`` as optax (and jax) classes; ``load_checkpoint`` unpickles
 those as inert stand-ins and drops ``opt_state``, so its step and params
 load where neither package is installed. Only load checkpoints this project
@@ -33,6 +37,8 @@ import os
 import pickle
 import threading
 from typing import Any
+
+import numpy as np
 
 from ..convert import params_to_numpy, retriever_params_to_numpy
 from ..data.tokenizer import SimpleTokenizer
@@ -199,18 +205,23 @@ def load_tokenizers_from_checkpoint(path: str):
     return tuple(out)
 
 
-def _check_leaves(tree, where="params"):
+def _checked_leaves(tree, where="params"):
+    """The tree with ml_dtypes bfloat16 leaves read as float32 (exact);
+    any other non-numeric leaf raises."""
     if isinstance(tree, dict):
-        for k, v in tree.items():
-            _check_leaves(v, f"{where}.{k}")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            _check_leaves(v, f"{where}.{i}")
-    elif getattr(tree, "dtype", None) is not None and \
-            tree.dtype.kind not in "fiub":
-        raise TypeError(f"checkpoint leaf {where} has dtype {tree.dtype}; "
-                        "the port loads float32/float16 (and integer) "
-                        "leaves only")
+        return {k: _checked_leaves(v, f"{where}.{k}")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_checked_leaves(v, f"{where}.{i}")
+                for i, v in enumerate(tree)]
+    dtype = getattr(tree, "dtype", None)
+    if dtype is not None and dtype.name == "bfloat16":
+        return tree.astype(np.float32)
+    if dtype is not None and dtype.kind not in "fiub":
+        raise TypeError(f"checkpoint leaf {where} has dtype {dtype}; "
+                        "the port loads float32/float16/bfloat16 (and "
+                        "integer) leaves only")
+    return tree
 
 
 class _Inert:
@@ -251,9 +262,10 @@ def load_checkpoint(path: str) -> dict:
     except ModuleNotFoundError as err:
         raise TypeError(
             f"{path} needs module {err.name!r} to unpickle — a bfloat16 "
-            "(ml_dtypes) tree from --param_dtype bfloat16; re-save it in "
-            "float32 to evaluate it in the port") from err
-    _check_leaves(state["params"])
+            "(ml_dtypes) tree the JAX package saved under --param_dtype "
+            "bfloat16; install ml_dtypes, or re-save it in float32, to load "
+            "it in the port") from err
+    state["params"] = _checked_leaves(state["params"])
     opt_state = state.get("opt_state")
     if opt_state is not None and not (
             isinstance(opt_state, dict) and "format" in opt_state):

@@ -24,16 +24,24 @@ differences from the JAX package, whose resume replays the data from the
 first batch with a fresh optimizer. The step's random generators restart
 from ``--seed``.
 
-Not ported yet: ``--profile_steps`` (ROADMAP queue A item 15).
+``--profile_steps a-b`` runs ``torch.profiler`` (CPU, and CUDA on the card)
+from the start of step a to the start of step b, as the JAX package brackets
+``jax.profiler`` (``loop.py:174-180``), and writes a Chrome trace under
+``<checkpoint>/profile``; inside the span ``record_function`` marks
+``retrieve+tokenize``, ``prefetch_retrieve`` and each step's ``train``.
+Without the flag nothing is profiled or marked.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import signal
 import time
+
+import torch
 
 from ..config import Options
 from ..index.refresh import IncrementalIndexRefresher
@@ -54,10 +62,46 @@ def train_mode_of(opt: Options) -> str:
     return "concat" if opt.gen_method == "concat" else opt.gold_score_mode
 
 
-def _check_ported(opt: Options) -> None:
-    if opt.profile_steps:
-        raise NotImplementedError(
-            "--profile_steps is not ported yet: ROADMAP queue A item 15")
+class StepProfiler:
+    """``torch.profiler`` over steps [a, b) of ``--profile_steps a-b``:
+    ``at_step`` starts it at step a and stops it, writing the trace, at
+    step b; ``span(name)`` is a ``record_function`` while it runs and a
+    no-op otherwise."""
+
+    def __init__(self, profile_steps: str, out_dir: str,
+                 device: torch.device):
+        self.range = (tuple(int(x) for x in profile_steps.split("-"))
+                      if profile_steps else None)
+        self.out_dir = out_dir
+        self.activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            self.activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = None
+
+    def at_step(self, step: int) -> None:
+        if self.range is None:
+            return
+        if step == self.range[0]:
+            self.prof = torch.profiler.profile(activities=self.activities)
+            self.prof.start()
+        elif step == self.range[1]:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        self.prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        a, b = self.range
+        path = os.path.join(self.out_dir, f"steps_{a}-{b}.pt.trace.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        logger.info("profiler trace written to %s", path)
+
+    def span(self, name: str):
+        if self.prof is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(name)
 
 
 def train(model, index, params: dict, tx: AdamW, opt: Options,
@@ -65,12 +109,14 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
           checkpoint_path: str | None = None):
     """Run the training loop; returns the final step. ``params`` is updated
     in place."""
-    _check_ported(opt)
     run_stats = WeightedAvgStats()
     checkpoint_path = checkpoint_path or os.path.join(opt.checkpoint_dir,
                                                       opt.name)
     os.makedirs(checkpoint_path, exist_ok=True)
     metrics_log = open(os.path.join(checkpoint_path, "metrics.jsonl"), "a")
+    profiler = StepProfiler(opt.profile_steps,
+                            os.path.join(checkpoint_path, "profile"),
+                            model.device)
     try:
         mode = train_mode_of(opt)
         first_step = step + 1
@@ -147,6 +193,7 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                 iter_stats: dict = {}
                 step += 1
                 t_step = time.time()
+                profiler.at_step(step)
                 if uses_index and refresh.is_time_to_refresh(step):
                     # a just-loaded index already holds these weights' rows
                     if not (step == first_step
@@ -174,11 +221,12 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                 retrieval = (prefetched[0] if prefetched is not None
                              and prefetched[1] == index_version else None)
                 t0 = time.time()
-                train_batch = model.build_batch(
-                    mode, index, params, queries, targets, iter_stats,
-                    file_passages=batch.get("passages"),
-                    batch_metadata=batch.get("metadata"),
-                    filtering_fun=filt, retrieval=retrieval)
+                with profiler.span("retrieve+tokenize"):
+                    train_batch = model.build_batch(
+                        mode, index, params, queries, targets, iter_stats,
+                        file_passages=batch.get("passages"),
+                        batch_metadata=batch.get("metadata"),
+                        filtering_fun=filt, retrieval=retrieval)
                 iter_stats["runtime/retrieve+tokenize"] = (time.time() - t0,
                                                            1)
                 next_batch = next(batches_it, None)
@@ -187,17 +235,19 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                         and step < opt.total_steps):
                     # the next batch's candidates from the pre-step params
                     t0 = time.time()
-                    prefetched = (model.retrieval_ctx(
-                        mode, index, params, next_batch["query"],
-                        next_batch["target"], iter_stats,
-                        file_passages=next_batch.get("passages"),
-                        batch_metadata=next_batch.get("metadata"),
-                        filtering_fun=filt), index_version)
+                    with profiler.span("prefetch_retrieve"):
+                        prefetched = (model.retrieval_ctx(
+                            mode, index, params, next_batch["query"],
+                            next_batch["target"], iter_stats,
+                            file_passages=next_batch.get("passages"),
+                            batch_metadata=next_batch.get("metadata"),
+                            filtering_fun=filt), index_version)
                     iter_stats["runtime/prefetch_retrieve"] = (
                         time.time() - t0, 1)
 
                 t0 = time.time()
-                loss, aux = train_step(params, train_batch, rng)
+                with profiler.span("train"):
+                    loss, aux = train_step(params, train_batch, rng)
                 # host time to enqueue the step; the device finishes later
                 iter_stats["runtime/fwdbwd+update"] = (time.time() - t0, 1)
                 iter_stats["runtime/train_step"] = (time.time() - t_step, 1)
@@ -278,6 +328,7 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
         _flush_metrics(metrics_log, step, run_stats)
         return step
     finally:
+        profiler.stop()  # a span past the last step ends with the run
         metrics_log.close()
         wait_for_writes()
 

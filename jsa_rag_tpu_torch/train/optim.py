@@ -21,7 +21,12 @@ trained weights:
   (``schedule(0)`` first), and under accumulation the count advances once
   per ``accumulation_steps`` micro-steps, the clip acting on their mean.
 
-Optimizer state is float32 (``param_dtype=bfloat16`` is not ported).
+Optimizer state is float32 whatever the parameters' dtype. Under
+``--param_dtype bfloat16`` the gradient is read in f32, mu and nu stay f32
+and the update is computed in f32 from the bf16 weight and rounded to bf16
+on store, as ``optax.apply_updates`` does. The JAX package pins mu to f32
+but keeps nu in the parameters' bf16, where ``0.999 nu + 0.001 g^2`` rounds
+back to nu (``ADVICE.md:3``); the port's f32 nu is a deliberate difference.
 
 Resume (a deliberate difference from the JAX package, which builds a fresh
 state on every start and so reruns the warmup from count 0 with zero
@@ -128,9 +133,9 @@ class AdamW:
         self.count = 0  # updates taken (optax's count, shared by groups)
         self.k = max(1, opt.accumulation_steps)
         self.mini_step = 0
-        self.mu = [torch.zeros_like(t) if lab != "frozen" else None
+        self.mu = [_f32_zeros(t) if lab != "frozen" else None
                    for t, lab in zip(self.leaves, self.labels)]
-        self.nu = [torch.zeros_like(t) if lab != "frozen" else None
+        self.nu = [_f32_zeros(t) if lab != "frozen" else None
                    for t, lab in zip(self.leaves, self.labels)]
         self.acc = ([None] * len(self.leaves)) if self.k > 1 else None
 
@@ -177,7 +182,7 @@ class AdamW:
                         f"{tuple(arr.shape)}, the leaf "
                         f"{tuple(self.leaves[i].shape)}")
                 ts[i] = torch.from_numpy(np.array(arr)).to(
-                    self.leaves[i].device, self.leaves[i].dtype)
+                    self.leaves[i].device, torch.float32)
         if missing:
             logger.info("optimizer state has no moments for %d trained "
                         "leaves (%s, ...): they start at zero",
@@ -201,8 +206,8 @@ class AdamW:
                 if g is None and self.acc[i] is None:
                     continue
                 acc = (self.acc[i] if self.acc[i] is not None
-                       else torch.zeros_like(self.leaves[i]))
-                g = torch.zeros_like(acc) if g is None else g
+                       else _f32_zeros(self.leaves[i]))
+                g = torch.zeros_like(acc) if g is None else g.float()
                 self.acc[i] = acc + (g - acc) / (n + 1)
             if self.mini_step < self.k - 1:
                 self.mini_step += 1
@@ -236,13 +241,22 @@ class AdamW:
                 mu.mul_(self.b1)
                 nu.mul_(self.b2)
             else:
-                g = (g / denom) * factor  # optax: (t / g_norm) * max_norm
+                # optax: (t / g_norm) * max_norm; a bf16 gradient read in f32
+                g = (g.float() / denom) * factor
                 mu.copy_((1 - self.b1) * g + self.b1 * mu)
                 nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            p32 = p.float()  # p itself when p is f32
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            u = u + self.wd * p
-            p.add_(steps[lab] * u)
+            u = u + self.wd * p32
+            if p.dtype == torch.float32:
+                p.add_(steps[lab] * u)
+            else:  # the f32 update rounded to the stored dtype
+                p.copy_(p32 + steps[lab] * u)
         self.count = count_inc
+
+
+def _f32_zeros(t: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(t, dtype=torch.float32)
 
 
 def set_optim(opt: Options, params: dict, opt_state=None,

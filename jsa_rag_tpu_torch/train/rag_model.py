@@ -13,7 +13,10 @@ the generator's tensors.
 Training covers every mode: ``retrieval_ctx``/``build_batch`` search with
 ``retrieve`` (one tower) for rag and concat and with ``retrieve_pair`` plus
 ``build_union`` for vrag and jsa; ``loss_and_grad_fn`` differentiates the
-mode's loss. ``retrieve_with_rerank`` is ROADMAP queue A item 11.
+mode's loss. Under ``--retrieve_with_rerank`` every search over-retrieves
+``max(n_to_rerank_with_retrieve_with_rerank, k)`` candidates and re-sorts
+them by the live passage tower's re-embedding (``rag_model.py:287-306``);
+``retrieve_pair`` then takes two ``retrieve`` calls, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,8 +40,6 @@ from ..models.retriever import DualEncoderRetriever
 from .modes import MODE_LOSSES, ApplyFns
 
 BERT_MAX_SEQ_LENGTH = 512  # reference: src/rag.py:40
-RERANK = ("retrieve_with_rerank is not ported yet: ROADMAP queue A item "
-          "11")
 
 
 class RAGModel:
@@ -156,14 +157,16 @@ class RAGModel:
         passages). ``filtering_fun`` is the task's anti-cheat filter
         (retrieval over-fetches 8 so filtered rows still fill topk); pass
         ``q_emb`` when the caller already embedded the queries."""
-        if self.opt.retrieve_with_rerank:
-            raise NotImplementedError(RERANK)
         t0 = time.time()
         if q_emb is None:
             q_emb = self.embed_queries(params, queries, posterior=posterior)
         fetch_k = topk + (8 if filtering_fun is not None else 0)
-        scores, ids = index.search(q_emb, fetch_k)
-        ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
+        if self.opt.retrieve_with_rerank:
+            ids, scores = self._retrieve_rerank(index, params, q_emb,
+                                                fetch_k, posterior)
+        else:
+            scores, ids = index.search(q_emb, fetch_k)
+            ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
         passages = self.passage_texts(ids)
         if filtering_fun is not None:
             passages, score_lists = filtering_fun(
@@ -180,6 +183,38 @@ class RAGModel:
         if iter_stats is not None:
             iter_stats["runtime/search"] = (time.time() - t0, 1)
         return ids, scores, passages
+
+    def _retrieve_rerank(self, index, params, q_emb, topk: int,
+                         posterior: bool):
+        """retrieve_with_rerank (src/rag.py:177-247): over-retrieve
+        ``n_to_rerank``, re-embed those passages with the live passage
+        tower (the posterior's for posterior queries) in
+        ``per_gpu_embedder_batch_size`` chunks, dot them with the query
+        embedding in f32 on the host, and re-sort with the JAX package's
+        ``np.argsort(-scores)`` (not stable: equal scores keep its
+        order). -> (ids (B, topk), scores (B, topk)) numpy."""
+        n_rr = max(self.opt.n_to_rerank_with_retrieve_with_rerank, topk)
+        _, cand_ids = index.search(q_emb, n_rr)
+        cand_ids = cand_ids.cpu().numpy()
+        p_ids, p_mask = self._tokenize_passage_matrix(
+            self.passage_texts(cand_ids))
+        p_ids = p_ids.reshape(-1, p_ids.shape[-1])
+        p_mask = p_mask.reshape(-1, p_mask.shape[-1])
+        tower = (self._posterior_params(params) if posterior
+                 else params["retriever"])
+        chunk = max(1, self.opt.per_gpu_embedder_batch_size)
+        with torch.no_grad():
+            p_emb = torch.cat([
+                tower.embed_passages(self._tensor(p_ids[i:i + chunk]),
+                                     self._tensor(p_mask[i:i + chunk]))
+                .to(torch.float32) for i in range(0, len(p_ids), chunk)])
+        b = cand_ids.shape[0]
+        p_emb = p_emb.cpu().numpy().reshape(b, cand_ids.shape[1], -1)
+        scores = np.einsum("bh,bkh->bk",
+                           q_emb.to(torch.float32).cpu().numpy(), p_emb)
+        order = np.argsort(-scores, axis=-1)[:, :topk]
+        return (np.take_along_axis(cand_ids, order, axis=1),
+                np.take_along_axis(scores, order, axis=1))
 
     def live_rescore(self, params, queries: list[str],
                      passages: list[list[dict]], q_emb=None) -> np.ndarray:
@@ -247,9 +282,16 @@ class RAGModel:
                       iter_stats: dict | None = None):
         """Prior + posterior retrieval: both query towers embed, then ONE
         search over the concatenated 2B queries (``rag_model.py:198-262``).
-        Returns (prior ids, post ids, prior passages, post passages)."""
+        Returns (prior ids, post ids, prior passages, post passages). Under
+        ``retrieve_with_rerank``: two ``retrieve`` calls, posterior first
+        (``rag_model.py:206-218``)."""
         if self.opt.retrieve_with_rerank:
-            raise NotImplementedError(RERANK)
+            post_ids, _, post_passages = self.retrieve(
+                index, params, post_queries, topk, posterior=True,
+                iter_stats=iter_stats)
+            prior_ids, _, prior_passages = self.retrieve(
+                index, params, queries, topk, iter_stats=iter_stats)
+            return prior_ids, post_ids, prior_passages, post_passages
         t0 = time.time()
         prior_q = self.embed_queries(params, queries)
         post_q = self.embed_queries(params, post_queries, posterior=True)

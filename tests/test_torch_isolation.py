@@ -1,9 +1,13 @@
 """The port stands alone: no JAX and nothing of the JAX package in
-``jsa_rag_tpu_torch/`` or ``chip_smoke.py``; the CUDA kernel never launches
-for CPU tensors; a request for CUDA where there is none raises; the smoke
-fails without a card or without the repository."""
+``jsa_rag_tpu_torch/`` or ``chip_smoke.py``, and no ``transformers``,
+``safetensors`` or ``ml_dtypes`` (the card has none of them) apart from the
+tokenizer loader's guarded import; the HF directory reader works with those
+three blocked; the CUDA kernel never launches for CPU tensors; a request for
+CUDA where there is none raises; the smoke fails without a card or without
+the repository."""
 
 import ast
+import json
 import os
 import pkgutil
 import shutil
@@ -24,6 +28,10 @@ from jsa_rag_tpu_torch.ops import mips_topt
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "jsa_rag_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "jsa_rag_tpu", "flax", "optax"}
+HF_PACKAGES = {"transformers", "safetensors", "ml_dtypes"}
+# the one guarded import: HF tokenizers where a model directory has one
+# (data/tokenizer.py::load_tokenizer), as the JAX package loads them
+GUARDED = {os.path.join(PKG, "data", "tokenizer.py"): {"transformers"}}
 
 
 def _sources():
@@ -56,6 +64,85 @@ def test_no_jax_imports_in_port_sources():
     for path in sources:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def _module_level_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    body = ast.Module(body=[n for n in tree.body if isinstance(
+        n, (ast.Import, ast.ImportFrom, ast.If, ast.Try, ast.With))],
+        type_ignores=[])
+    roots = set()
+    for node in ast.walk(body):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_hf_packages_in_port_sources():
+    """No port module and not the smoke imports transformers, safetensors
+    or ml_dtypes; the tokenizer loader imports transformers inside its
+    function only."""
+    for path in _sources():
+        allowed = GUARDED.get(path, set())
+        bad = (_imported_roots(path) & HF_PACKAGES) - allowed
+        assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+        assert not _module_level_roots(path) & HF_PACKAGES, path
+
+
+def test_hf_loader_works_with_hf_packages_blocked(tmp_path):
+    """HF directories (bge safetensors, a sharded mistral, a gpt2
+    ``pytorch_model.bin``) load through ``load_or_initialize_model`` in a
+    process where transformers, safetensors, ml_dtypes and jax cannot be
+    imported, as on the card, to the same leaves as here."""
+    transformers = pytest.importorskip("transformers")
+    from jsa_rag_tpu_torch import convert, model_io
+    from jsa_rag_tpu_torch.config import Options
+    from jsa_rag_tpu_torch.data.passages import PassageStore
+
+    torch.manual_seed(0)
+    transformers.BertModel(transformers.BertConfig(
+        vocab_size=50, hidden_size=16, num_hidden_layers=1,
+        num_attention_heads=2, intermediate_size=32,
+        max_position_embeddings=32)).save_pretrained(str(tmp_path / "bge"))
+    transformers.MistralForCausalLM(transformers.MistralConfig(
+        vocab_size=40, hidden_size=16, intermediate_size=32,
+        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
+        tie_word_embeddings=False)).save_pretrained(
+            str(tmp_path / "mistral"), max_shard_size="8KB")
+    transformers.GPT2LMHeadModel(transformers.GPT2Config(
+        vocab_size=40, n_embd=16, n_layer=1, n_head=2,
+        n_positions=32)).save_pretrained(str(tmp_path / "gpt2"),
+                                         safe_serialization=False)
+    for gen in ("mistral", "gpt2"):
+        argv = ["--device", "cpu", "--retriever_model_path",
+                str(tmp_path / "bge"), "--generator_model_path",
+                str(tmp_path / gen), "--generator_model_type", gen,
+                "--max_vocab", "40", "--use_lora", "false",
+                "--param_dtype", "bfloat16"]
+        _, params, _ = model_io.load_or_initialize_model(
+            Options.from_args(argv), PassageStore.synthetic(4))
+        want = {k: float(v.sum()) for k, v in convert.params_to_numpy(
+            params)["generator"]["layers"][0].items()}
+        code = ("import sys, json\n"
+                "for m in ('transformers', 'safetensors', 'ml_dtypes', "
+                "'jax', 'jaxlib', 'jsa_rag_tpu'):\n"
+                "    sys.modules[m] = None\n"
+                "from jsa_rag_tpu_torch import convert, model_io\n"
+                "from jsa_rag_tpu_torch.config import Options\n"
+                "from jsa_rag_tpu_torch.data.passages import PassageStore\n"
+                f"opt = Options.from_args({argv!r})\n"
+                "_, p, _ = model_io.load_or_initialize_model(\n"
+                "    opt, PassageStore.synthetic(4))\n"
+                "layer = convert.params_to_numpy(p)['generator']['layers'][0]\n"
+                "print(json.dumps({k: float(v.sum()) for k, v in "
+                "layer.items()}))\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert json.loads(out.stdout.strip().splitlines()[-1]) == want
 
 
 def test_package_imports_with_jax_blocked():

@@ -248,8 +248,32 @@ def test_convert_round_trip_and_unported():
     for a, b in zip(jax.tree_util.tree_leaves(back),
                     jax.tree_util.tree_leaves(tree)):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="A.*12|item 12"):
-        tlm.lm_init(tlm.LMConfig(arch="gpt2", **GEOM), device="cpu",
-                    generator=torch.Generator())
+    # the gpt2 architecture is ported: its init has the JAX tree's leaves
+    # and shapes; beam decoding is still queue A item 12
+    gcfg = dict(GEOM, kv_heads=GEOM["heads"])
+    jg = jlm.lm_init(jax.random.PRNGKey(0),
+                     jlm.LMConfig(arch="gpt2", **gcfg))
+    tg = tlm.lm_init(tlm.LMConfig(arch="gpt2", **gcfg), device="cpu",
+                     generator=torch.Generator())
+    assert jax.tree_util.tree_structure(jg) == \
+        jax.tree_util.tree_structure(tg)
+    for a, b in zip(jax.tree_util.tree_leaves(jg),
+                    jax.tree_util.tree_leaves(tg)):
+        assert tuple(a.shape) == tuple(b.shape)
     with pytest.raises(NotImplementedError, match="item 12"):
         tlm.beam_generate(tp, tcfg)
+
+
+def test_decode_drift_tool_holds_the_cache_at_f32():
+    """analysis/decode_drift.py at a narrow width: the f32 cached decode
+    equals its cache-free forward within 1e-4 nats, and every gap is
+    finite."""
+    from jsa_rag_tpu_torch.analysis.decode_drift import drift
+
+    r = drift(2, torch.device("cpu"), hidden=64, heads=4, kv_heads=2,
+              intermediate=128, vocab_size=1000)
+    assert r["cached_f32"]["gap_to_free_f32"] < 1e-4
+    for run in ("cached_bf16", "cached_f32"):
+        assert all(np.isfinite(v) for k, v in r[run].items()
+                   if k.startswith(("gap", "free")))
+
