@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port: one CUDA card, the index-serving path,
 the evaluate path, the jsa, rag, vrag and concat training paths, the MIPS
-benches, and training and evaluation from HF checkpoint directories at full
-width, every kernel of those paths against its plain PyTorch version.
+benches, training and evaluation from HF checkpoint directories at full
+width, and the repo's eval recipe (beam search) with the multiple-choice
+and mlm tasks, every kernel of those paths against its plain PyTorch
+version.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -185,6 +187,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     rescoring of its 128 candidates, 8 greedy rows against a cache-free
     forward; and ``evaluate`` from the gpt2 directory over 8 questions
     with the same greedy check.
+22. the repo's own eval recipe and the other tasks, on phase 21's HF
+    directories, checkpoint and hybrid index (run inside phase 21, before
+    its work directory goes): ``python -m jsa_rag_tpu_torch.evaluate``'s
+    ``main`` with ``egs/eval.sh``'s options verbatim (``--task qa
+    --gen_method fast_deocde1 --n_context 10 --generation_max_length 256
+    --generation_num_beams 4 --generation_length_penalty 1.1 --precision
+    bf16 --write_results true``) plus the directories, bf16 storage and
+    ``--load_index_path``, over 16 questions in batches of 8 (80 prompts, 320
+    beams a batch): B2's launches and B2 against its plain version on
+    main's first search, recall@10 of main's searches against exact f32
+    over the stored rows, the 16-row predictions file, 8 beam rows'
+    captured log-probs and kept length-normalised scores against a
+    cache-free forward up to EOS, the decode steps run (the early exit),
+    each batch's wall split and its ``generate`` device time, peak memory;
+    the same options from the gpt2 directory over 8 questions with the same
+    beam check; ``--task multiple_choice
+    --multiple_choice_eval_permutations cyclic`` on the checkpoint over 16
+    examples the smoke writes from corpus texts (64 permuted rows): the
+    letters' token ids, the predictions file, the accuracies, 8 rows'
+    choice logits against a separate forward of each prompt; and
+    ``python -m jsa_rag_tpu_torch.train``'s ``main`` with ``--task mlm``
+    for 3 steps on 16 text passages written with their ids, no checkpoint
+    saved: finite losses, and the anti-cheat filter's calls (no kept
+    passage with its example's id unless re-appended to fill top-k; how
+    many searches it removed one from).
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, the ``kernels`` JSON object (B1-B9) and
@@ -2781,6 +2808,21 @@ def check_generator_files(torch, np, gen_tree, path: str,
     return len(pairs)
 
 
+def compare_first_int8_scan(mt, call, what: str):
+    """B2 against its plain version on the inputs of one recorded
+    ``flat.mips_topk_int8_t`` call, at that call's tile and T; -> (max abs
+    error, the call's k)."""
+    (q0, codes, scales, k0), kw0, _ = call
+    tile, t_ = mt.scan_geometry(codes.shape[0],
+                                min(kw0["refine"] * k0, codes.shape[0]),
+                                kw0["pool_n"])
+    qv, qs = mt.quantize_int8(q0.float())
+    err = compare_int8(mt, qv, qs, codes, scales, kw0["valid_n"], tile, t_,
+                       f"{what}: B={q0.shape[0]} k={k0} refine="
+                       f"{kw0['refine']} T={t_}")
+    return err, k0
+
+
 def hf_phase(torch, mt, g, dev) -> dict:
     """Phase 21: train and evaluate from HF directories at full width in
     bf16 parameter storage with --retrieve_with_rerank and
@@ -2808,8 +2850,8 @@ def hf_phase(torch, mt, g, dev) -> dict:
             f"phase's disk peak (32 layers pass the 45 GiB a run may "
             f"write), and past 8 layers the phase outgrows ~5 minutes and "
             f"bf16 rounding nears the greedy check's 0.1-nat bound")
-    log("  no HF tokenizer on this machine (no transformers): the "
-        "SimpleTokenizer fallback, --max_vocab 30522")
+    log("  the HF directories hold no tokenizer files: the SimpleTokenizer "
+        "fallback, --max_vocab 30522")
     work = tempfile.mkdtemp(prefix="chip_smoke_hf_")
     try:
         t0 = time.perf_counter()
@@ -2929,18 +2971,11 @@ def hf_phase(torch, mt, g, dev) -> dict:
         torch.cuda.empty_cache()
 
         # B2 against its plain version on the first rerank search (k=128)
-        (q0, codes, scales, k0), kw0, _ = run["calls"][0]
-        tile, t_ = mt.scan_geometry(codes.shape[0],
-                                    min(kw0["refine"] * k0, codes.shape[0]),
-                                    kw0["pool_n"])
-        qv, qs = mt.quantize_int8(q0.float())
-        max_err = compare_int8(mt, qv, qs, codes, scales, kw0["valid_n"],
-                               tile, t_, f"main's first rerank search: "
-                               f"B={q0.shape[0]} k={k0} refine="
-                               f"{kw0['refine']} T={t_}")
+        max_err, k0 = compare_first_int8_scan(mt, run["calls"][0],
+                                              "main's first rerank search")
         if k0 != 128:
             raise AssertionError(f"the first search took k={k0}, not 128")
-        del run["calls"], q0, codes, scales, qv, qs
+        del run["calls"]
 
         # the trace of the profiled step
         idle = log_trace(os.path.join(run_dir, "profile",
@@ -3013,6 +3048,11 @@ def hf_phase(torch, mt, g, dev) -> dict:
             f"cache-free forward: {g_exact}/{g_steps} steps the exact "
             f"argmax, log-probs within {g_worst:.4f}")
         del decodes
+        torch.cuda.empty_cache()
+        # phase 22 on this phase's directories, checkpoint and index,
+        # before the work directory goes
+        recipe = recipe_phase(torch, mt, work, hf, run_dir, index_path, store,
+                              questions, q8, gpt2)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -3025,7 +3065,364 @@ def hf_phase(torch, mt, g, dev) -> dict:
             "profile": idle, "rerank": rerank,
             "greedy_exact_steps": [exact, n_steps],
             "gpt2_greedy_exact_steps": [g_exact, g_steps],
-            "eval_metrics": ev_metrics, "gpt2_metrics": g_metrics}
+            "eval_metrics": ev_metrics, "gpt2_metrics": g_metrics,
+            "recipe": recipe}
+
+
+# --------------------------------------------------------------- phase 22
+# egs/eval.sh's evaluation options, verbatim (4 beams, length penalty 1.1,
+# 256 new tokens, fast_deocde1 over 10 passages)
+EVAL_RECIPE = ["--task", "qa", "--gen_method", "fast_deocde1",
+               "--n_context", "10", "--generation_max_length", "256",
+               "--generation_num_beams", "4",
+               "--generation_length_penalty", "1.1", "--precision", "bf16",
+               "--write_results", "true"]
+MLM_STEPS = 3
+
+
+def timed_eval_main(torch, argv, counter, records) -> dict:
+    """``python -m jsa_rag_tpu_torch.evaluate``'s ``main(argv)`` with its
+    batches' wall split (``BatchTimes``), every ``RAGModel.generate`` call
+    bracketed by CUDA events, the peak memory, and the calls of each
+    ``recording`` argument tuple in ``records`` kept; ``counter`` (a kernel
+    wrapper) is set to 0 just before main and read just after."""
+    from jsa_rag_tpu_torch import evaluate as evaluate_cli
+    from jsa_rag_tpu_torch.train import rag_model
+
+    times = BatchTimes()
+    eval_log = logging.getLogger("jsa_rag_tpu_torch.evaluation")
+    eval_log.addHandler(times)
+    eval_log.setLevel(logging.INFO)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.ExitStack() as stack:
+            calls = [stack.enter_context(recording(*r)) for r in records]
+            spans = stack.enter_context(device_spans(
+                [(rag_model.RAGModel, "generate", "generate")]))
+            counter.launches = 0  # main path starts
+            results = evaluate_cli.main(argv)
+            launches = counter.launches  # main path ends
+    finally:
+        eval_log.removeHandler(times)
+    torch.cuda.synchronize()
+    return {"results": results, "launches": launches, "calls": calls,
+            "main_s": time.perf_counter() - t0,
+            "peak": torch.cuda.max_memory_allocated(),
+            "batch_s": times.seconds, "stages": times.stages,
+            "generate_device_ms": [a.elapsed_time(b)
+                                   for a, b in spans["generate"]]}
+
+
+def log_eval_batches(run: dict) -> list:
+    """One line a batch: its wall split and the device time of its
+    ``generate``; -> the records."""
+    out = []
+    for n, (s, st, dev_ms) in enumerate(zip(run["batch_s"], run["stages"],
+                                            run["generate_device_ms"])):
+        out.append({**st, "batch": s, "generate_device_ms": dev_ms})
+        log(f"  eval batch {n}: {s:.3f} s = " + ", ".join(
+            f"{k} {v:.3f}" for k, v in st.items())
+            + f"; generate on the device {dev_ms:.1f} ms")
+    return out
+
+
+def check_beam_rows(torch, call, result, rows: int = 8) -> dict:
+    """Hold ``rows`` rows of one recorded ``beam_generate`` call to a
+    cache-free ``lm_logits`` over prompt + best hypothesis, up to each
+    row's EOS: the captured per-token log-probs (beam tokens need not be
+    the argmax, so only the log-probs are held), and the length-normalised
+    score the finished set kept (``result``, the call's ``BeamResult``)
+    against the same sum from the cache-free log-probs; both within
+    ``GREEDY_TOL`` (the two forwards run the same bf16 layers on other
+    matmul shapes). -> the worst gaps and the hypotheses' lengths."""
+    from jsa_rag_tpu_torch.models.lm import lm_logits
+
+    (params, cfg, ids, mask), kw, (toks, lps) = call
+    ids, mask, toks, lps = ids[:rows], mask[:rows], toks[:rows], lps[:rows]
+    p = ids.shape[1]
+    full = torch.cat([ids.long(), toks], dim=1)
+    full_mask = torch.cat([mask.long(), torch.ones_like(toks)], dim=1)
+    with torch.no_grad():
+        ref = torch.log_softmax(lm_logits(params, cfg, full, full_mask),
+                                dim=-1)[:, p - 1:-1]
+    worst = worst_score = 0.0
+    lengths = []
+    for r in range(rows):
+        eos = torch.nonzero(toks[r] == kw["eos_id"])
+        n = int(eos[0]) + 1 if len(eos) else toks.shape[1]
+        lengths.append(n)
+        free = ref[r, torch.arange(n, device=toks.device), toks[r, :n]]
+        worst = max(worst, float((lps[r, :n] - free).abs().max()))
+        if bool((lps[r, n:] != 0).any()):
+            raise AssertionError(f"beam row {r}: log-probs past its EOS")
+        score = float(free.double().sum()) / n ** kw["length_penalty"]
+        worst_score = max(worst_score, abs(score - float(result.scores[r])))
+    if max(worst, worst_score) > GREEDY_TOL:
+        raise AssertionError(f"beam rows off a cache-free forward: log-probs "
+                             f"{worst:.3f}, scores {worst_score:.3f} nats")
+    return {"logprob_max_abs_err": worst, "score_max_abs_err": worst_score,
+            "lengths": lengths}
+
+
+def write_mc_questions(torch, path: str, store, n: int, seed: int) -> str:
+    """``n`` multiple-choice examples from text passages picked by
+    ``seed``: the first six words of a passage, four options (its next two
+    words and those of three other passages) and the gold letter."""
+    g = torch.Generator().manual_seed(seed)
+    picks = torch.randperm(N_TEXT, generator=g)[:4 * n].reshape(n, 4)
+    golds = torch.randint(0, 4, (n,), generator=g).tolist()
+    with open(path, "w") as f:
+        for row, gold in zip(picks.tolist(), golds):
+            words = [store[i]["text"].split() for i in row]
+            opts = [" ".join(w[6:8]) for w in words[1:]]
+            opts.insert(gold, " ".join(words[0][6:8]))
+            f.write(json.dumps({"question": " ".join(words[0][:6]),
+                                "options": dict(zip("ABCD", opts)),
+                                "answer": "ABCD"[gold]}) + "\n")
+    return path
+
+
+def check_choice_rows(torch, call, rows: int = 8) -> dict:
+    """The letters' token ids (distinct, known words, below the
+    generator's vocabulary), and ``rows`` rows of one recorded
+    ``evaluation._choice_logits`` call against a separate ``lm_logits``
+    forward of each prompt alone (batch 1 against main's left-padded batch
+    of 8), within ``GREEDY_TOL``: the same bf16 layers on other matmul
+    shapes round differently. -> letter ids and the worst gap."""
+    from jsa_rag_tpu_torch.data.prompts import build_generation_batch
+    from jsa_rag_tpu_torch.models.lm import lm_logits
+
+    (model, params, queries, passages, choices), _, got = call
+    tok = model.generator_tokenizer
+    letters = {c: int(tok.encode_batch([c], 4, add_special=False)[0][0][0])
+               for c in choices}
+    vocab = model.gen_cfg.vocab_size
+    if len(set(letters.values())) != len(letters) or not all(
+            0 <= t < vocab and t != tok.unk_id for t in letters.values()):
+        raise AssertionError(f"choice letters' ids {letters} not distinct "
+                             f"known ids below {vocab}")
+    gen = model.gen_params(params)
+    worst = 0.0
+    for i in range(rows):
+        gids, gmask = build_generation_batch(tok, [queries[i]],
+                                             [[passages[i][0]]],
+                                             model.prompt_cfg)
+        with torch.no_grad():
+            last = lm_logits(gen, model.gen_cfg, model._tensor(gids),
+                             model._tensor(gmask))[0, -1]
+        worst = max(worst, max(abs(float(last[t]) - got[i][c])
+                               for c, t in letters.items()))
+    if worst > GREEDY_TOL:
+        raise AssertionError(f"choice logits off a separate forward by "
+                             f"{worst:.3f}")
+    return {"letter_ids": letters, "max_abs_err": worst}
+
+
+def check_filter_calls(calls) -> dict:
+    """The anti-cheat filter's recorded calls (``filter_results_by_id``):
+    no kept passage carries its example's id unless the filter had to
+    re-append it to fill ``topk``. -> searches, those the filter removed a
+    passage from, and the re-appended cases."""
+    removed = reappended = rows = 0
+    for (meta, fetched, _, topk), _, (kept, _) in calls:
+        hit = False
+        for m, f_row, k_row in zip(meta, fetched, kept):
+            own = m.get("id")
+            others = [p for p in f_row if p.get("id") != own]
+            rows += 1
+            hit |= len(others) < len(f_row)
+            n_own = sum(p.get("id") == own for p in k_row)
+            if n_own > max(0, topk - len(others)):
+                raise AssertionError(f"example {own}: its own passage kept "
+                                     f"with {len(others)} others to fill "
+                                     f"top-{topk}")
+            reappended += n_own
+        removed += hit
+    return {"searches": len(calls), "rows": rows,
+            "searches_with_removal": removed, "reappended": reappended}
+
+
+def recipe_phase(torch, mt, work, hf, run_dir, index_path, store, questions,
+                 q8, gpt2) -> dict:
+    """Phase 22: the repo's eval recipe and the other tasks on phase 21's
+    HF directories, checkpoint and hybrid index; -> B2's launches by path,
+    its error on this phase's first scan and the phase's records."""
+    from jsa_rag_tpu_torch import evaluation
+    from jsa_rag_tpu_torch.index import flat
+    from jsa_rag_tpu_torch.index.flat import ShardedFlatIndex
+    from jsa_rag_tpu_torch.models import lm
+    from jsa_rag_tpu_torch.tasks import mlm as mlm_task
+    from jsa_rag_tpu_torch.train import rag_model
+
+    log("[22] egs/eval.sh on the port (4 beams, length penalty 1.1, 256 "
+        "tokens, fast_deocde1, 10 passages, bf16) from phase 21's checkpoint "
+        "and index; gpt2 beams; multiple choice (cyclic); 3 mlm steps")
+    t_phase = time.perf_counter()
+    base = FLAGSHIP + hf + ["--retrieve_with_rerank", "false",
+                            "--load_index_path", index_path,
+                            "--per_gpu_batch_size", "8"]
+    launches = {}
+
+    # ------------------------------------------------ egs/eval.sh, Mistral
+    argv = base + ["--model_path", run_dir, "--eval_data", questions,
+                   "--name", "eval-beam4"] + EVAL_RECIPE
+    ev = timed_eval_main(torch, argv, mt.scan_topt_int8, [
+        (ShardedFlatIndex, "search"), (flat, "mips_topk_int8_t", 1),
+        (rag_model, "beam_generate", 1), (lm, "_beam_search")])
+    searches, scans, beams, results = ev["calls"]
+    name = os.path.basename(questions)
+    metrics = ev["results"][name]
+    launches["evaluate_beam4"] = ev["launches"]
+    steps = [int(r[2].steps) for r in results]
+    log(f"  evaluate main (egs/eval.sh's options): {ev['main_s']:.1f} s, B2 "
+        f"launches {ev['launches']}, peak memory "
+        f"{ev['peak'] / 2**30:.2f} GiB; metrics " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(metrics.items())))
+    log(f"  beam searches: {len(results)} batches of "
+        f"{beams[0][0][2].shape[0]} prompts x {beams[0][1]['num_beams']} "
+        f"beams, decode steps run {steps} of "
+        f"{beams[0][1]['max_new_tokens']} (the early exit)")
+    batches = log_eval_batches(ev)
+    if ev["launches"] < 1 or not all(math.isfinite(v)
+                                     for v in metrics.values()):
+        raise AssertionError("eval.sh: no B2 launch or non-finite metrics")
+    with open(os.path.join(work, "ck", "eval-beam4",
+                           f"{name}.jsonl")) as f:
+        n_pred = sum(1 for _ in f)
+    log(f"  predictions file: {n_pred} rows")
+    if n_pred != 16:
+        raise AssertionError(f"{n_pred} predictions for 16 questions")
+    b2_err, k0 = compare_first_int8_scan(mt, scans[0],
+                                         "eval.sh main's first search")
+    sidx = searches[0][0][0]  # main's own index
+    q = torch.cat([args[1] for args, _, _ in searches]).float()
+    got = torch.cat([out[1] for _, _, out in searches])
+    rows = sidx.embeddings_as_float()
+    r10 = recall_against_oracle(torch, q, got, rows, 10)
+    del rows, sidx, searches, scans
+    log(f"  recall@10 of main's {q.shape[0]} searches against exact f32 over "
+        f"the stored rows: {r10:.4f}")
+    if r10 < RECALL_BAR:
+        raise AssertionError(f"recall@10 {r10:.4f} < {RECALL_BAR}")
+    beam_check = check_beam_rows(torch, beams[0], results[0][2])
+    log(f"  8 beam rows of the Mistral-width generator against a cache-free "
+        f"forward up to EOS (lengths {beam_check['lengths']}): log-probs "
+        f"within {beam_check['logprob_max_abs_err']:.4f}, the kept "
+        f"length-normalised scores within "
+        f"{beam_check['score_max_abs_err']:.4f} nats")
+    del beams, results
+    torch.cuda.empty_cache()
+    log_disk("the eval.sh run")
+
+    # ------------------------------------------------------- gpt2 beams
+    argv = base + ["--generator_model_path", gpt2, "--generator_model_type",
+                   "gpt2", "--eval_data", q8, "--name",
+                   "eval-beam4-gpt2"] + EVAL_RECIPE
+    gv = timed_eval_main(torch, argv, mt.scan_topt_int8, [
+        (rag_model, "beam_generate", 1), (lm, "_beam_search", 1)])
+    launches["evaluate_beam4_gpt2"] = gv["launches"]
+    g_metrics = gv["results"][os.path.basename(q8)]
+    if not all(math.isfinite(v) for v in g_metrics.values()):
+        raise AssertionError(f"gpt2: non-finite metrics {g_metrics}")
+    g_check = check_beam_rows(torch, gv["calls"][0][0],
+                              gv["calls"][1][0][2])
+    log(f"  gpt2 with egs/eval.sh's options from its HF directory: "
+        f"{gv['main_s']:.1f} s, B2 launches {gv['launches']}, decode steps "
+        f"{int(gv['calls'][1][0][2].steps)}; 8 beam rows against a "
+        f"cache-free forward: log-probs within "
+        f"{g_check['logprob_max_abs_err']:.4f}, scores within "
+        f"{g_check['score_max_abs_err']:.4f} nats")
+    g_batches = log_eval_batches(gv)
+    del gv
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------- multiple choice
+    mc16 = write_mc_questions(torch, os.path.join(work, "mc16.jsonl"), store,
+                              16, SEED + 24)
+    argv = base + ["--model_path", run_dir, "--task", "multiple_choice",
+                   "--multiple_choice_eval_permutations", "cyclic",
+                   "--eval_data", mc16, "--write_results", "true",
+                   "--name", "eval-mc"]
+    mc = timed_eval_main(torch, argv, mt.scan_topt_int8,
+                         [(evaluation, "_choice_logits", 1)])
+    launches["evaluate_mc"] = mc["launches"]
+    mc_metrics = mc["results"]["mc16.jsonl"]
+    log(f"  multiple-choice evaluate main: {mc['main_s']:.1f} s, B2 launches "
+        f"{mc['launches']}, {len(mc['batch_s'])} batches; metrics "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(mc_metrics.items())))
+    if not all(0.0 <= mc_metrics[k] <= 1.0
+               for k in ("accuracy", "debiased_accuracy")):
+        raise AssertionError(f"accuracies outside [0, 1]: {mc_metrics}")
+    with open(os.path.join(work, "ck", "eval-mc", "mc16.jsonl.jsonl")) as f:
+        preds = [json.loads(line) for line in f]
+    if len(preds) != 16 or not all(
+            len(p["permutations"]) == 4 and "choice_probs" in p
+            and all("choice_logits" in q for q in p["permutations"])
+            for p in preds):
+        raise AssertionError("the predictions file lacks 16 rows with 4 "
+                             "scored permutations each")
+    choice = check_choice_rows(torch, mc["calls"][0][0])
+    log(f"  predictions: {len(preds)} rows of 4 permutations with "
+        f"choice_logits; letters' ids {choice['letter_ids']}; 8 rows' "
+        f"choice logits against a separate forward of each prompt within "
+        f"{choice['max_abs_err']:.4f}")
+    del mc
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ mlm training steps
+    mlm_path = os.path.join(work, "mlm.jsonl")
+    picks = torch.randperm(N_TEXT, generator=torch.Generator().manual_seed(
+        SEED + 25))[:16].tolist()
+    with open(mlm_path, "w") as f:
+        f.write("".join(json.dumps(store[i]) + "\n" for i in picks))
+    argv = FLAGSHIP + hf + [
+        "--retrieve_with_rerank", "false", "--task", "mlm",
+        "--use_gradient_checkpoint_generator", "true",
+        "--use_gradient_checkpoint_retriever", "true",
+        "--train_data", mlm_path, "--load_index_path", index_path,
+        "--total_steps", str(MLM_STEPS), "--warmup_steps", "1",
+        "--save_freq", "1000000", "--log_freq", "1", "--eval_freq",
+        "1000000", "--refresh_index", "0-40000:40000", "--name", "train-mlm"]
+    run = timed_train_main(torch, argv, mt.scan_topt_int8,
+                           (mlm_task, "filter_results_by_id"), [])
+    launches["train_mlm"] = run["launches"]
+    with open(os.path.join(work, "ck", "train-mlm", "metrics.jsonl")) as f:
+        m_metrics = [json.loads(line) for line in f]
+    losses = [(m["loss/train_loss"], m["loss/generator_loss"])
+              for m in m_metrics]
+    filt = check_filter_calls(run["calls"])
+    log(f"  mlm train main: {run['main_s']:.1f} s, {run['final_step']} steps, "
+        f"B2 launches {run['launches']}, step device ms " + ", ".join(
+            f"{ms:.1f}" for ms in run["device_ms"]) + "; losses " + ", ".join(
+            f"{a:.4f}/{b:.4f}" for a, b in losses))
+    log(f"  anti-cheat filter: {filt['searches']} searches over "
+        f"{filt['rows']} rows, {filt['searches_with_removal']} had a passage "
+        f"with the example's own id removed"
+        + (" (0: the check proved nothing)"
+           if not filt["searches_with_removal"] else "")
+        + f", {filt['reappended']} re-appended to fill top-k")
+    if (run["final_step"] != MLM_STEPS or len(losses) != MLM_STEPS
+            or not all(math.isfinite(v) for pair in losses for v in pair)
+            or run["launches"] < 1):
+        raise AssertionError(f"mlm training: {run['final_step']} steps, "
+                             f"losses {losses}, B2 launches "
+                             f"{run['launches']}")
+    log_disk("phase 22")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 22: {phase_s:.1f} s")
+    return {"launches": launches, "max_abs_err": b2_err, "first_scan_k": k0,
+            "phase_s": phase_s,
+            "eval_beam4": {"main_s": ev["main_s"], "peak_memory_bytes":
+                           ev["peak"], "batches": batches,
+                           "decode_steps": steps, "recall_at_10": r10,
+                           "metrics": metrics, **beam_check},
+            "eval_beam4_gpt2": {"metrics": g_metrics, "batches": g_batches,
+                                **g_check},
+            "eval_mc": {"metrics": mc_metrics, **choice},
+            "train_mlm": {"main_s": run["main_s"], "losses": losses,
+                          "device_ms": run["device_ms"],
+                          "peak_memory_bytes": run["peak"], **filt}}
 
 
 def row_kernels(bp: dict, errs: dict) -> list:
@@ -3167,13 +3564,17 @@ def main() -> None:
     rows = row_kernels(bench_phase(torch, mt, ms, dev, row_errs), row_errs)
     torch.cuda.empty_cache()
     hf = hf_phase(torch, mt, g, dev)
-    # B2's launches on every path that drove it: phase 11's jsa steps, then
-    # phase 21's training and evaluation
+    # B2's launches on every path that drove it: phase 11's jsa steps,
+    # phase 21's training and evaluation, then phase 22's runs
+    recipe = hf.pop("recipe")
     b2["launches_by_path"] = {"train_jsa_hybrid": b2["launches"],
                               "train_hf_rerank": hf["launches_train"],
-                              "evaluate_hf_rerank": hf["launches_eval"]}
+                              "evaluate_hf_rerank": hf["launches_eval"],
+                              **recipe["launches"]}
     b2["launches"] = sum(b2["launches_by_path"].values())
-    b2["max_abs_err"] = max(b2["max_abs_err"], hf["max_abs_err"])
+    b2["max_abs_err"] = max(b2["max_abs_err"], hf["max_abs_err"],
+                            recipe["max_abs_err"])
+    b2["recipe"] = recipe
     b2["hf"] = hf
 
     log(f"smoke took {time.perf_counter() - t_start:.0f} s")

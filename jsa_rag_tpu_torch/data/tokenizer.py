@@ -17,6 +17,8 @@ Interface contract (used by the embed pipeline, tasks, and the generator):
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
@@ -145,10 +147,27 @@ class HFTokenizerWrapper:
         )
 
 
+# the files an HF tokenizer is read from; a model directory holding none of
+# them has no tokenizer to load
+HF_TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "vocab.txt",
+                      "vocab.json", "merges.txt", "tokenizer.model",
+                      "spiece.model", "sentencepiece.bpe.model")
+
+
+def has_tokenizer_files(path: str) -> bool:
+    return any(os.path.isfile(os.path.join(path, f))
+               for f in HF_TOKENIZER_FILES)
+
+
 def load_tokenizer(name_or_path: str | None, max_vocab: int = 50000):
     """HF tokenizer if loadable from a local path/cache, else SimpleTokenizer
-    (no network in this environment; synthetic runs use the simple one)."""
-    if name_or_path:
+    (no network in this environment; synthetic runs use the simple one). A
+    local directory without tokenizer files (weights and ``config.json``
+    only) takes the SimpleTokenizer: some ``transformers`` versions build a
+    vocabulary-less tokenizer there, which maps every word to one unknown
+    id."""
+    if name_or_path and not (os.path.isdir(name_or_path)
+                             and not has_tokenizer_files(name_or_path)):
         try:
             from transformers import AutoTokenizer
 

@@ -3,11 +3,11 @@ reference: evaluate.py:30-386), one process.
 
 Per batch: retrieve top-k -> rescore with the live towers -> substring-recall
 bookkeeping -> eval loss (generator CE on the gold target) -> generation
-(concat prompt, or fast-decode best-of-K) -> task metrics.
+(concat prompt, or fast-decode best-of-K; greedy or beam search), or for a
+multiple-choice task the choice letters' logits -> task metrics.
 ``run_retrieval_only`` ports evaluate.py:60-102. Several processes (the
 JAX package's dummy-batch alignment and rank-merged files) arrive with
-``torch.distributed`` (ROADMAP queue A item 13); multiple-choice scoring
-(``_choice_logits``) with the other tasks (item 12).
+``torch.distributed`` (ROADMAP queue A item 13).
 """
 
 from __future__ import annotations
@@ -19,9 +19,12 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from .config import Options
+from .data.prompts import build_generation_batch
 from .tasks import get_task
+from .models.lm import lm_logits
 from .train.rag_model import RAGModel
 from .utils import metrics as M
 from .utils.stats import WeightedAvgStats
@@ -56,7 +59,8 @@ def evaluate(model: RAGModel, index, params, opt: Options, data_path: str,
     (host clock around the whole batch) is logged at INFO, with the seconds
     in the record's ``batch_s`` attribute and its split in ``stage_s``:
     ``retrieve`` (query embed, search, passage lookup), ``rescore``,
-    ``eval_loss``, ``generate`` and ``score`` (detokenise, task metrics).
+    ``eval_loss``, ``generate`` (``choice_logits`` for a multiple-choice
+    task) and ``score`` (detokenise, task metrics).
     Each stage ends in a host copy of its device results, so the host clock
     splits them with no added synchronise."""
     task = get_task(opt, model.generator_tokenizer)
@@ -119,25 +123,42 @@ def evaluate(model: RAGModel, index, params, opt: Options, data_path: str,
                 per_seq.reshape(len(queries), -1).mean(-1)[:n_real].tolist())
         lap("eval_loss")
 
-        if opt.gen_method == "concat" or opt.concat_doc:
+        # multiple choice: the choice letters' logits at the first answer
+        # position instead of generation (reference:
+        # src/tasks/multiple_choice.py get_choice_logits + evaluate.py's MC
+        # path). One process, so the JAX package's cross-process dummy
+        # batches (and the "choices" key its template carries for them,
+        # ``extra_keys``) have no counterpart here.
+        choice_rows = None
+        if hasattr(task, "choices") and "choices" in batch:
+            choice_rows = _choice_logits(model, params, queries, passages,
+                                         task.choices)
+            lap("choice_logits")
+        elif opt.gen_method == "concat" or opt.concat_doc:
             # one passages-concatenated prompt per query (reference
             # src/rag.py:533-538, 2323)
             best = model.generate(params, queries, passages,
                                   max_new_tokens=opt.generation_max_length,
                                   force_concat=True)
+            lap("generate")
         else:
             best, _ = model.method_generate(
                 params, queries, passages, ret_scores,
                 max_new_tokens=opt.generation_max_length)
-        lap("generate")
+            lap("generate")
         for i in range(n_real):
-            pred = model.generator_tokenizer.decode(best[i]).strip()
+            if choice_rows is None:
+                pred = model.generator_tokenizer.decode(best[i]).strip()
+            else:
+                pred = max(choice_rows[i], key=choice_rows[i].get)
             gold = _answers_of(batch, i)
             for k, v in task.evaluation(pred, gold).items():
                 if k in metrics:
                     metrics[k].append(v)
-            ex = {"query": queries[i], "generation": pred, "answers": gold,
-                  "passages": passages[i]}
+            ex = {"query": queries[i], "generation": pred, "answers": gold}
+            if choice_rows is not None:
+                ex["choice_logits"] = choice_rows[i]
+            ex["passages"] = passages[i]
             if "metadata" in batch:
                 ex["metadata"] = batch["metadata"][i]
             dataset_wpred.append(ex)
@@ -191,9 +212,26 @@ def run_retrieval_only(model: RAGModel, index, params, opt: Options,
     return out
 
 
-def _choice_logits(*args, **kwargs):
-    raise NotImplementedError("multiple-choice scoring is not ported yet: "
-                              "ROADMAP queue A item 12")
+def _choice_logits(model: RAGModel, params, queries, passages, choices):
+    """Per-example {letter: logit} at the first generated position over
+    each query's top passage (``evaluation.py:238-259``): one
+    ``lm_logits`` forward, the logit of each letter's first token id."""
+    top1 = [[p[0]] for p in passages]
+    gids, gmask = build_generation_batch(
+        model.generator_tokenizer, queries, top1, model.prompt_cfg)
+    with torch.no_grad():
+        last = lm_logits(model.gen_params(params), model.gen_cfg,
+                         model._tensor(gids), model._tensor(gmask))[:, -1]
+    last = last.cpu().numpy()
+    letter_ids = {
+        c: model.generator_tokenizer.encode_batch([c], 4,
+                                                  add_special=False)[0][0][0]
+        for c in choices
+    }
+    return [
+        {c: float(last[i, int(tid)]) for c, tid in letter_ids.items()}
+        for i in range(len(queries))
+    ]
 
 
 def _reduce_metrics(metrics: dict) -> dict:

@@ -14,8 +14,8 @@ Counterpart of ``jsa_rag_tpu/models/lm.py``, both architectures:
   ``layers.<i>.{ln1_s, ln1_b, qkv_w, qkv_b, o_w, o_b, ln2_s, ln2_b, fc_w,
   fc_b, proj_w, proj_b}``.
 
-One ``lm_logits`` forward serves CE and scoring, and greedy decoding runs
-over a preallocated KV cache (full MHA for gpt2). Plain functions on tensors
+One ``lm_logits`` forward serves CE and scoring; greedy and beam decoding
+run over preallocated KV caches (full MHA for gpt2). Plain functions on tensors
 over a parameter dict with the JAX package's key names and (in, out) weight
 layout (``x @ w``), so ``convert.py`` moves a numpy pytree into either
 package.
@@ -39,14 +39,13 @@ front; ``cfg.remat`` recomputes each block in the backward pass
 Token ids must lie below ``cfg.vocab_size``: ``model_io`` refuses a
 tokenizer with more ids than the embedding has rows (the JAX package's
 ``jnp.take`` reads NaN rows for them instead).
-
-Not ported yet (ROADMAP queue A item 12): ``beam_generate``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 import torch.utils.checkpoint
@@ -54,7 +53,6 @@ import torch.utils.checkpoint
 from .bert import _layer_norm, dropout, split_seeds
 
 IGNORE_INDEX = -100  # label mask value, same constant as the reference
-A12 = "is not ported yet: ROADMAP queue A item 12"
 MATMUL_WEIGHTS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
 # gpt2's projections and their biases, cast to the activation dtype
 GPT2_WEIGHTS = ("qkv_w", "qkv_b", "o_w", "o_b", "fc_w", "fc_b", "proj_w",
@@ -168,14 +166,19 @@ def _rms_norm(x, scale, eps):
     return (y * scale).to(x.dtype)
 
 
-def _rope(x, positions, theta):
-    """x: (B, S, N, D); positions: (B, S)."""
-    half = x.shape[-1] // 2
+def _rope_angles(positions, half: int, theta):
+    """(cos, sin) of the rotary angles, each (B, S, 1, half) f32."""
     freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
-                                          device=x.device) / half))
+                                          device=positions.device) / half))
     angles = positions[..., None].to(torch.float32) * freqs  # (B, S, half)
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def _rope(x, positions, theta, angles=None):
+    """x: (B, S, N, D); positions: (B, S); ``angles``: their
+    ``_rope_angles``, when the caller shares them across layers."""
+    half = x.shape[-1] // 2
+    cos, sin = angles or _rope_angles(positions, half, theta)
     xf = x.to(torch.float32)
     x1, x2 = xf[..., :half], xf[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
@@ -261,11 +264,14 @@ def _gpt2_block(layer, cfg: LMConfig, x, bias, cache=None,
                                                 layer["ln1_b"], GPT2_LN_EPS),
                         bias, cache, cache_len, seeds[0])
     x = x + dropout(a, cfg.dropout, seeds[1])
+    return x + dropout(_gpt2_mlp(layer, x), cfg.dropout, seeds[2])
+
+
+def _gpt2_mlp(layer, x):
     h = _layer_norm(x, layer["ln2_s"], layer["ln2_b"], GPT2_LN_EPS)
     h = torch.nn.functional.gelu(h @ layer["fc_w"] + layer["fc_b"],
                                  approximate="tanh")
-    h = h @ layer["proj_w"] + layer["proj_b"]
-    return x + dropout(h, cfg.dropout, seeds[2])
+    return h @ layer["proj_w"] + layer["proj_b"]
 
 
 def _embed_in(p: dict, cfg: LMConfig, input_ids, positions):
@@ -483,5 +489,289 @@ def greedy_generate(params: dict, cfg: LMConfig, input_ids, attention_mask,
     return toks
 
 
-def beam_generate(*args, **kwargs):
-    raise NotImplementedError(f"beam_generate {A12}")
+
+
+# --------------------------------------------------------------- beam search
+BEAM_NEG = -1.0e9  # the running and finished sets' mask score, as in HF
+# the early exit reads the device's "some row unsatisfied" flag on the host
+# once every this many steps; the steps in between are frozen no-ops on the
+# device, so the result does not depend on it
+EXIT_CHECK_EVERY = 8
+
+
+class BeamResult(NamedTuple):
+    """Each batch row's best finished hypothesis: its (B, T) ids (pad after
+    EOS), their (B, T) f32 log-probs (0 in the pad tail) and its (B,)
+    length-normalised score; ``steps`` is the number of decode steps the
+    search ran before its early exit (a 0-dim tensor)."""
+    ids: torch.Tensor
+    logprobs: torch.Tensor
+    scores: torch.Tensor
+    steps: torch.Tensor
+
+
+def top_k_lax(x, k: int):
+    """The ``k`` largest entries of ``x``'s last dimension in
+    ``jax.lax.top_k``'s order: descending, equal values lowest index first
+    (``torch.topk`` leaves the order of ties open, at the k-th place too).
+    Each f32 value and its index pack into one int64 key that orders as
+    the IEEE total order of the values (-0.0 below +0.0) and then by
+    ascending index, so one ``torch.topk`` over distinct keys returns that
+    order exactly. -> (values, int64 indices)."""
+    n = x.shape[-1]
+    bits = x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    # a non-negative float's bits order as the float; a negative one's
+    # (sign bit set) run backwards: map them below every non-negative key
+    key = torch.where(bits >= 0, bits, -(2 ** 31) - 1 - bits)
+    low = (1 << 32) - 1
+    idx = torch.arange(n, dtype=torch.int64, device=x.device)
+    packed = key * (1 << 32) + (low - idx)
+    top = torch.topk(packed, k, dim=-1).values
+    idx = low - (top & low)
+    return torch.gather(x, -1, idx), idx
+
+
+def _length_norm(n: int, length_penalty: float) -> float:
+    """``n ** length_penalty`` rounded to f32 (the JAX package computes it
+    in f32)."""
+    return float(torch.tensor(float(n) ** length_penalty,
+                              dtype=torch.float32))
+
+
+def _beam_attend(qg, prompt_kv, gen_k, gen_v, prompt_bias, t: int, dtype):
+    """One decode step's attention of every beam over the prompt cache its
+    batch row shares and its own generation-cache slots [0, t].
+
+    qg: (B, K, G, R, D) grouped queries (G kv heads, R query heads each;
+    gpt2's full MHA passes R = 1); prompt k/v (B, P, G, D), held in f32
+    (the cache's values, upcast once a search); generation k/v time-major
+    (T, B*K, G, D). Logits and the value sums in f32, the softmax cast to
+    ``dtype`` (the greedy path's numerics: its one contraction over the
+    window is these two summed in f32). -> (B*K, 1, G*R*D) in
+    ``dtype``."""
+    b, kb, g, r, d = qg.shape
+    pk, pv = prompt_kv
+    gk = gen_k[:t + 1].reshape(t + 1, b, kb, g, d).to(torch.float32)
+    gv = gen_v[:t + 1].reshape(t + 1, b, kb, g, d).to(torch.float32)
+    q = qg.to(torch.float32)
+    scale = math.sqrt(d)
+    sp = torch.einsum("bkgrd,bpgd->bkgrp", q, pk) / scale
+    sg = torch.einsum("bkgrd,tbkgd->bkgrt", q, gk) / scale
+    logits = torch.cat([sp + prompt_bias[:, None, None, None, :], sg], -1)
+    probs = torch.softmax(logits, dim=-1).to(dtype).to(torch.float32)
+    p_len = pk.shape[1]
+    ctx = (torch.einsum("bkgrp,bpgd->bkgrd", probs[..., :p_len], pv)
+           + torch.einsum("bkgrt,tbkgd->bkgrd", probs[..., p_len:], gv))
+    return ctx.to(dtype).reshape(b * kb, 1, g * r * d)
+
+
+def _beam_decode_forward(p, cfg: LMConfig, tok, positions, prompt_cache,
+                         gen_cache, prompt_bias, t: int, kb: int):
+    """One beam decode step over the cast params ``p`` (``lm.py:491-523``):
+    ``tok`` (B*K, 1) at ``positions`` (B*K, 1) writes each beam's k/v into
+    slot ``t`` of its generation-cache row and attends over its batch
+    row's prompt cache and slots [0, t]. -> (B*K, V) f32 logits."""
+    x = _embed_in(p, cfg, tok, positions)
+    bk = x.shape[0]
+    b, nh, hd = bk // kb, cfg.heads, cfg.head_dim
+    if cfg.arch != "gpt2":  # every layer rotates at the same positions
+        angles = _rope_angles(positions, hd // 2, cfg.rope_theta)
+    for layer, pkv, (gk, gv) in zip(p["layers"], prompt_cache, gen_cache):
+        if cfg.arch == "gpt2":
+            h = _layer_norm(x, layer["ln1_s"], layer["ln1_b"], GPT2_LN_EPS)
+            qkv = h @ layer["qkv_w"] + layer["qkv_b"]
+            q, k, v = (u.reshape(bk, nh, hd)
+                       for u in qkv[:, 0].split(cfg.hidden, dim=-1))
+            gk[t], gv[t] = k, v
+            ctx = _beam_attend(q.reshape(b, kb, nh, 1, hd), pkv, gk, gv,
+                               prompt_bias, t, x.dtype)
+            x = x + (ctx @ layer["o_w"] + layer["o_b"])
+            x = x + _gpt2_mlp(layer, x)
+            continue
+        nkv = cfg.kv_heads
+        h = _rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+        q = _rope((h @ layer["q_w"]).reshape(bk, 1, nh, hd), positions,
+                  cfg.rope_theta, angles)
+        k = _rope((h @ layer["k_w"]).reshape(bk, 1, nkv, hd), positions,
+                  cfg.rope_theta, angles)
+        gk[t], gv[t] = k[:, 0], (h @ layer["v_w"]).reshape(bk, nkv, hd)
+        ctx = _beam_attend(q.reshape(b, kb, nkv, nh // nkv, hd), pkv, gk,
+                           gv, prompt_bias, t, x.dtype)
+        x = x + ctx @ layer["o_w"]
+        x = x + _mlp(layer, _rms_norm(x, layer["mlp_norm"], cfg.rms_eps))
+    return _unembed(p, cfg, x[:, -1])
+
+
+def _beam_search(p, cfg: LMConfig, input_ids, attention_mask, *,
+                 max_new_tokens: int, eos_id: int, pad_id: int,
+                 num_beams: int, length_penalty: float, min_new_tokens: int,
+                 forced_prefix, forced_len) -> BeamResult:
+    """The search of :func:`beam_generate` over the cast params ``p``."""
+    b, plen = input_ids.shape
+    kb, t_max = num_beams, max_new_tokens
+    dev = input_ids.device
+    f32 = torch.float32
+
+    # prefill on the B prompt rows; the K beams of a row share its cache
+    positions = positions_from_mask(attention_mask)
+    prompt_cache = init_cache(cfg, b, plen, dev)
+    logits = _forward_with_cache(p, cfg, input_ids, attention_mask,
+                                 positions, prompt_cache, 0, plen)
+    # the attention reads the prompt's k/v in f32 every step: upcast once
+    prompt_cache = [(k.to(torch.float32), v.to(torch.float32))
+                    for k, v in prompt_cache]
+    vocab = logits.shape[-1]
+    logits = logits[:, None].expand(b, kb, vocab)
+    prompt_bias = torch.where(attention_mask.bool(), 0.0, BEAM_NEG).to(f32)
+    next_pos = positions[:, -1] + 1
+    # the generation cache, time-major (T, B*K, kv, hd) a layer, and a
+    # second one that each step's reorder gathers into (then the two swap)
+    nkv = cfg.heads if cfg.arch == "gpt2" else cfg.kv_heads
+    shape = (t_max, b * kb, nkv, cfg.head_dim)
+
+    def caches():
+        return [(torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                 torch.zeros(shape, dtype=cfg.dtype, device=dev))
+                for _ in range(cfg.layers)]
+    gen, spare = caches(), caches()
+
+    run_scores = torch.full((b, kb), BEAM_NEG, dtype=f32, device=dev)
+    run_scores[:, 0] = 0.0  # beam 0 only: the others start masked
+    seqs = torch.full((b, kb, t_max), pad_id, dtype=torch.long, device=dev)
+    lp_seqs = torch.zeros((b, kb, t_max), dtype=f32, device=dev)
+    fin_seqs, fin_lps = seqs.clone(), lp_seqs.clone()
+    fin_scores = torch.full((b, kb), BEAM_NEG, dtype=f32, device=dev)
+    is_fin = torch.zeros((b, kb), dtype=torch.bool, device=dev)
+    unsat = torch.ones((b,), dtype=torch.bool, device=dev)
+    live = torch.ones((), dtype=torch.bool, device=dev)  # some row unsat
+    steps = torch.zeros((), dtype=torch.long, device=dev)
+    top_ranks = torch.arange(2 * kb, device=dev) < kb  # only these finish
+    row0 = torch.arange(b, device=dev)[:, None] * kb
+    vocab_ids = torch.arange(vocab, device=dev)
+
+    def take(x, sel):  # (B, N, ...) rows ``sel`` (B, M) of each batch row
+        return torch.gather(x, 1, sel.reshape(*sel.shape, *(1,) * (
+            x.dim() - 2)).expand(*sel.shape, *x.shape[2:]))
+
+    for t in range(t_max):
+        logp = torch.log_softmax(logits.to(f32), dim=-1)
+        if t < min_new_tokens and eos_id >= 0:
+            logp[..., eos_id] = -torch.inf
+        if forced_prefix is not None:
+            forced_t = forced_prefix[:, min(t, forced_prefix.shape[1] - 1)]
+            ban = ((t < forced_len)[:, None, None]
+                   & (vocab_ids != forced_t.long()[:, None, None]))
+            logp = logp.masked_fill(ban, -torch.inf)
+        acc = (run_scores[:, :, None] + logp).reshape(b, kb * vocab)
+        cand_scores, cand_idx = top_k_lax(acc, 2 * kb)  # (B, 2K)
+        src, tok = cand_idx // vocab, cand_idx % vocab
+        cand_seqs = take(seqs, src)
+        cand_seqs[:, :, t] = tok
+        # this step's token log-prob: acc = run + logp, so the increment is
+        # the candidate's score less its source beam's
+        cand_lps = take(lp_seqs, src)
+        cand_lps[:, :, t] = cand_scores - torch.gather(run_scores, 1, src)
+        hits = (tok == eos_id) | (t == t_max - 1)
+
+        # the running beams (HF keeps the masked score)
+        run_scores, sel = top_k_lax(cand_scores + hits.to(f32) * BEAM_NEG,
+                                    kb)
+        seqs, lp_seqs = take(cand_seqs, sel), take(cand_lps, sel)
+        sel_src = torch.gather(src, 1, sel)
+        sel_tok = torch.gather(tok, 1, sel)
+
+        # the finished set; frozen once the JAX loop would have exited
+        denom = _length_norm(t + 1, length_penalty)
+        did_finish = hits & top_ranks
+        gated = torch.where(did_finish & unsat[:, None], cand_scores / denom,
+                            BEAM_NEG)
+        new_scores, fsel = top_k_lax(torch.cat([fin_scores, gated], 1), kb)
+        fin_scores = torch.where(live, new_scores, fin_scores)
+        fin_seqs = torch.where(live, take(torch.cat([fin_seqs, cand_seqs], 1),
+                                          fsel), fin_seqs)
+        fin_lps = torch.where(live, take(torch.cat([fin_lps, cand_lps], 1),
+                                         fsel), fin_lps)
+        is_fin = torch.where(live, take(torch.cat([is_fin, did_finish], 1),
+                                        fsel), is_fin)
+        # HF's early-stop heuristic at the incremented length
+        best = run_scores[:, :1] / denom
+        worst = torch.where(is_fin, fin_scores.min(1, keepdim=True).values,
+                            BEAM_NEG)
+        unsat = unsat & (~live | (best > worst).any(1))
+        steps = steps + live.long()
+        live = live & unsat.any()
+        if t + 1 == t_max or ((t + 1) % EXIT_CHECK_EVERY == 0
+                              and not bool(live)):
+            break
+
+        # beam reorder: gather each new beam's history from its source
+        # beam's row into the spare cache (slots [0, t)), then swap
+        if t > 0:
+            rows = (row0 + sel_src).reshape(-1)
+            for (ck, cv), (sk, sv) in zip(gen, spare):
+                torch.index_select(ck[:t], 1, rows, out=sk[:t])
+                torch.index_select(cv[:t], 1, rows, out=sv[:t])
+            gen, spare = spare, gen
+        pos = (next_pos + t).repeat_interleave(kb)[:, None]
+        logits = _beam_decode_forward(
+            p, cfg, sel_tok.reshape(b * kb, 1), pos, prompt_cache, gen,
+            prompt_bias, t, kb).reshape(b, kb, vocab)
+    return BeamResult(fin_seqs[:, 0], fin_lps[:, 0], fin_scores[:, 0], steps)
+
+
+def beam_generate(params: dict, cfg: LMConfig, input_ids, attention_mask,
+                  *, max_new_tokens: int, eos_id: int, pad_id: int,
+                  num_beams: int, length_penalty: float = 1.0,
+                  min_new_tokens: int = 0, forced_prefix=None,
+                  forced_len=None, return_logprobs: bool = False):
+    """Beam-search decode (``lm.py:645-834``): transformers' vectorised
+    ``_beam_search`` with ``do_sample=False, early_stopping=False``.
+
+    - 2 * ``num_beams`` candidates a step, taken in ``lax.top_k``'s order
+      (``top_k_lax``), as are the running beams and the finished-set merge;
+    - only the top ``num_beams`` candidate ranks may finish, on EOS or at
+      the last step, with score ``sum_logprob / (t + 1) **
+      length_penalty``;
+    - the running beams carry the -1e9 mask of the candidates that
+      finished; each batch row's finished set stops taking candidates once
+      HF's early-stop heuristic holds (the best running score at the
+      current length against the worst finished one);
+    - ``min_new_tokens`` pins EOS to -inf for the first steps;
+      ``forced_prefix``/``forced_len`` allow only each row's forced token
+      while ``t < forced_len``;
+    - the search stops once no row is unsatisfied. The host reads that
+      flag every ``EXIT_CHECK_EVERY`` steps; the steps in between leave
+      the finished sets as they were, so the output is that of an exit at
+      the first such step.
+
+    The cache: the prompt's k/v are computed once per batch row and shared
+    by its K beams (never repeated K times). Each beam's generation k/v sit
+    in its own row of a (T, B*K, kv, hd) cache a layer, and a beam reorder
+    gathers the filled slots [0, t) into a second buffer (then the two
+    swap). The JAX package instead keeps the rows in place and attends
+    through a (B, K, T) ancestry matrix, scoring every beam against all K
+    physical rows and selecting with a one-hot einsum; both are exact
+    selections. The gather reads and writes the filled slots once a step,
+    a cost of the same order as the attention's own read of them; the
+    one-hot selection needs a (B, K, heads, K, T) weight tensor each layer
+    and step, and the gather keeps the attention the greedy path's plain
+    contraction.
+
+    ``input_ids`` must be LEFT-padded. Returns the (B, max_new_tokens)
+    int64 ids of each row's best finished hypothesis (EOS included, pad
+    after); with ``return_logprobs`` also their (B, max_new_tokens) f32
+    log-probs, each ``cand_score - run_score[src]`` (no second scoring
+    forward), 0 in the pad tail."""
+    _check_arch(cfg)
+    p = _cast_params(params, cfg)
+    with torch.no_grad():
+        out = _beam_search(p, cfg, input_ids, attention_mask,
+                           max_new_tokens=max_new_tokens, eos_id=eos_id,
+                           pad_id=pad_id, num_beams=num_beams,
+                           length_penalty=length_penalty,
+                           min_new_tokens=min_new_tokens,
+                           forced_prefix=forced_prefix,
+                           forced_len=forced_len)
+    if return_logprobs:
+        return out.ids, out.logprobs
+    return out.ids

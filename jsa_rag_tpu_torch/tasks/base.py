@@ -4,17 +4,21 @@ the checked-in file has unresolved merge markers).
 
 The port's own copy of ``jsa_rag_tpu/tasks/base.py`` for one process: the
 rank calls answer process 0 of 1 (``torch.distributed`` arrives with ROADMAP
-queue A item 13). The ``base`` task and the anti-cheat
-``filter_results_by_id`` of the lm/mlm/section tasks come with those tasks
-(item 12)."""
+queue A item 13). It holds the directly usable ``base`` task and
+``filter_results_by_id``, the anti-cheat filter of the lm, mlm and section
+tasks."""
 
 from __future__ import annotations
 
 import json
+import logging
 import random
 from collections import defaultdict
 
 from ..utils.metrics import exact_match_score
+
+
+logger = logging.getLogger(__name__)
 
 
 def _process_count() -> int:
@@ -156,3 +160,39 @@ class BaseTask:
 
     def evaluation_postprocessing(self, metrics, dataset_with_predictions):
         return metrics, dataset_with_predictions
+
+
+class Task(BaseTask):
+    """`base` task is directly usable (reference exposes it in the registry)."""
+
+    def __init__(self, opt=None, tokenizer=None, *args, **kwargs):
+        super().__init__()
+
+
+def filter_results_by_id(batch_metadata, passages, scores, topk,
+                         training=False):
+    """Anti-cheat filter for MLM/LM/section: drop retrieved passages whose id
+    matches the source chunk being denoised/generated; re-append them only if
+    the result would fall short of topk (src/tasks/base.py:97-132)."""
+    if batch_metadata is None:
+        logger.warning(
+            "filter_results_by_id got a batch without metadata (likely a "
+            "padding instance); returning the unfiltered topk")
+        return [ps[:topk] for ps in passages], [ss[:topk] for ss in scores]
+
+    output_passages, output_scores = [], []
+    for metadata, passage_li, scores_li in zip(batch_metadata, passages,
+                                               scores):
+        kept, violating = [], []
+        for p, s in zip(passage_li, scores_li):
+            (violating if p.get("id") == metadata.get("id") else kept).append(
+                (p, s))
+        if topk > len(kept):
+            logger.warning("%d passages after filtering for topk = %d",
+                           len(kept), topk)
+        kept += violating
+        ps, ss = zip(*kept)
+        output_passages.append(ps)
+        output_scores.append(ss)
+    return ([ps[:topk] for ps in output_passages],
+            [ss[:topk] for ss in output_scores])

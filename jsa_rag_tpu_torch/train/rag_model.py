@@ -33,8 +33,8 @@ from ..data.prompts import (PromptConfig, build_generation_batch,
                             build_training_batch, global_max_len)
 from ..device import resolve_device
 from ..index.build import build_index as _build_index, make_encode_fn
-from ..models.lm import (LMConfig, greedy_generate, lm_loss,
-                         lm_sequence_logprob)
+from ..models.lm import (LMConfig, beam_generate, greedy_generate,
+                         lm_loss, lm_sequence_logprob)
 from ..models.lora import LoRAConfig
 from ..models.retriever import DualEncoderRetriever
 from .modes import MODE_LOSSES, ApplyFns
@@ -508,17 +508,15 @@ class RAGModel:
     # -------------------------------------------------------------- generation
     def generate(self, params, queries, passages, *, max_new_tokens=None,
                  force_concat: bool = False, return_logprobs: bool = False):
-        """Greedy decode on left-padded prompts -> (B or B*K, L_new) ids
-        (numpy), and the per-token log-probs with ``return_logprobs``.
+        """Decode on left-padded prompts -> (B or B*K, L_new) ids (numpy),
+        and the per-token log-probs with ``return_logprobs``: greedy when
+        ``generation_num_beams == 1``, else beam search with
+        ``generation_length_penalty`` (``rag_model.py:632-647``); both with
+        ``generation_min_length`` new tokens at least.
         ``decoder_prompt_format`` forces each row's formatted query prefix
         first; ``force_concat`` builds one passages-concatenated prompt per
         query (the reference's ``gen_method == 'concat'``,
-        src/rag.py:533-538). Beam search (``generation_num_beams > 1``) is
-        ROADMAP queue A item 12."""
-        if self.opt.generation_num_beams > 1:
-            raise NotImplementedError(
-                "beam decoding (generation_num_beams > 1) is not ported yet: "
-                "ROADMAP queue A item 12")
+        src/rag.py:533-538)."""
         cfg = self.prompt_cfg
         if force_concat and not cfg.concat_doc:
             cfg = dataclasses.replace(cfg, concat_doc=True)
@@ -530,15 +528,21 @@ class RAGModel:
             # no eos token -> -1 never matches; decode runs to max length
             eos_id=-1 if eos is None else eos,
             pad_id=self.generator_tokenizer.pad_id,
+            min_new_tokens=self.opt.generation_min_length or 0,
+            return_logprobs=return_logprobs,
         )
         if self.opt.decoder_prompt_format:
             kw["forced_prefix"], kw["forced_len"] = self._forced_prefix(
                 queries, n_rows=gids.shape[0])
-        out = greedy_generate(
-            self.gen_params(params), self.gen_cfg, self._tensor(gids),
-            self._tensor(gmask),
-            min_new_tokens=self.opt.generation_min_length or 0,
-            return_logprobs=return_logprobs, **kw)
+        args = (self.gen_params(params), self.gen_cfg, self._tensor(gids),
+                self._tensor(gmask))
+        beams = self.opt.generation_num_beams
+        if beams > 1:
+            out = beam_generate(
+                *args, num_beams=beams,
+                length_penalty=self.opt.generation_length_penalty, **kw)
+        else:
+            out = greedy_generate(*args, **kw)
         if return_logprobs:
             toks, lps = out
             return toks.cpu().numpy(), lps.cpu().numpy()

@@ -139,9 +139,11 @@ def test_qa_task_and_metrics_match_jax(tmp_path):
         js.update(vals)
         ts.update(vals)
     assert ts.average_stats == js.average_stats
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tget_task(tconfig.Options(task="multiple_choice", device="cpu"),
-                  None)
+    mc = dict(task="multiple_choice", multiple_choice_num_options=3)
+    jmc = jget_task(jconfig.Options(**mc), None)
+    tmc = tget_task(tconfig.Options(device="cpu", **mc), None)
+    assert tmc.metrics == jmc.metrics
+    assert tmc.choices == jmc.choices == "ABC"
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

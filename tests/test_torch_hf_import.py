@@ -374,3 +374,41 @@ def test_vocab_guard_raises_where_jax_gives_nan(tmp_path):
         tmodel_io.load_or_initialize_model(
             _opt(tmp_path, model_path=str(tmp_path / "ck" / "run")),
             TStore.synthetic(8, seed=0))
+
+
+def test_tokenizer_loader_needs_tokenizer_files(tmp_path, monkeypatch):
+    """A model directory holding weights and ``config.json`` only takes the
+    SimpleTokenizer and never reaches ``AutoTokenizer`` (some transformers
+    versions build a vocabulary-less tokenizer there, mapping every word
+    to one unknown id); a directory with tokenizer files, or a cache name,
+    still loads through ``AutoTokenizer``."""
+    import sys
+    import types
+
+    from jsa_rag_tpu_torch.data import tokenizer as tk
+
+    calls = []
+
+    class Stub:
+        pad_token, eos_token, unk_token = "[PAD]", None, "[UNK]"
+        pad_token_id, bos_token_id, eos_token_id, sep_token_id = 0, 1, 2, 3
+
+    def from_pretrained(name, **kw):
+        calls.append(name)
+        return Stub()
+
+    monkeypatch.setitem(sys.modules, "transformers", types.SimpleNamespace(
+        AutoTokenizer=types.SimpleNamespace(from_pretrained=from_pretrained)))
+    bare = tmp_path / "bge-large-en"
+    bare.mkdir()
+    (bare / "config.json").write_text("{}")
+    tok = tk.load_tokenizer(str(bare), max_vocab=77)
+    assert isinstance(tok, tk.SimpleTokenizer) and tok.max_vocab == 77
+    assert calls == []
+    full = tmp_path / "with-tokenizer"
+    full.mkdir()
+    (full / "tokenizer.json").write_text("{}")
+    assert isinstance(tk.load_tokenizer(str(full)), tk.HFTokenizerWrapper)
+    assert isinstance(tk.load_tokenizer("BAAI/bge-large-en"),
+                      tk.HFTokenizerWrapper)
+    assert calls == [str(full), "BAAI/bge-large-en"]

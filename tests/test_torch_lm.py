@@ -249,7 +249,7 @@ def test_convert_round_trip_and_unported():
                     jax.tree_util.tree_leaves(tree)):
         np.testing.assert_array_equal(a, b)
     # the gpt2 architecture is ported: its init has the JAX tree's leaves
-    # and shapes; beam decoding is still queue A item 12
+    # and shapes; beam decoding returns (B, max_new_tokens) ids
     gcfg = dict(GEOM, kv_heads=GEOM["heads"])
     jg = jlm.lm_init(jax.random.PRNGKey(0),
                      jlm.LMConfig(arch="gpt2", **gcfg))
@@ -260,8 +260,10 @@ def test_convert_round_trip_and_unported():
     for a, b in zip(jax.tree_util.tree_leaves(jg),
                     jax.tree_util.tree_leaves(tg)):
         assert tuple(a.shape) == tuple(b.shape)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tlm.beam_generate(tp, tcfg)
+    ids, mask, _ = _batch()
+    out = tlm.beam_generate(tp, tcfg, _t(ids), _t(mask), max_new_tokens=3,
+                            eos_id=7, pad_id=0, num_beams=2)
+    assert out.shape == (ids.shape[0], 3) and out.dtype == torch.long
 
 
 def test_decode_drift_tool_holds_the_cache_at_f32():
