@@ -2,9 +2,10 @@
 """Chip smoke of the PyTorch port: one CUDA card, the index-serving path,
 the evaluate path, the jsa, rag, vrag and concat training paths, the MIPS
 benches, training and evaluation from HF checkpoint directories at full
-width, and the repo's eval recipe (beam search) with the multiple-choice
-and mlm tasks, every kernel of those paths against its plain PyTorch
-version.
+width, the repo's eval recipe (beam search) with the multiple-choice and
+mlm tasks, the IVF indexes (training, evaluate and serve through ivfpq)
+and the Atlas index interop, every kernel of those paths against its plain
+PyTorch version.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -212,6 +213,58 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     saved: finite losses, and the anti-cheat filter's calls (no kept
     passage with its example's id unless re-appended to fill top-k; how
     many searches it removed one from).
+23. IVF at the flagship index geometry: 1,300,000 x 1024 clustered unit
+    rows (``fill_clustered``'s generator, seeded on the card), n_lists
+    auto (1,140); ``ShardedIVFIndex`` dense bf16 (ivfflat), sq8 + refine
+    (ivfsq), pq with code_size 32 (ivfpq, the flagship FAISS setting) with
+    and without refine: each build's split (k-means, codebooks, encode and
+    scatter), the largest list, the stored bytes (packed, and the (C, cap)
+    layout on disk), recall@100 of 64 perturbed rows (searched 8 at a
+    time) against exact f32 at n_probe 8, 32, 71 (auto) and 1,140, the
+    search ms at B = 8 and 64 at each; checks: dense and sq8 + refine reach
+    ``RECALL_BAR`` at full probe, pq + refine beats pq at each n_probe,
+    recall does not fall as n_probe rises, no -1 id at n_probe >= 8, a
+    second sq8 + refine build from the seed is identical, pq save -> load
+    gives the same ids and scores bit for bit, and the pq and pq + refine
+    scans at n_probe 71 and 1,140 return the pool of a plain reference on
+    the same index (``check_pq_scan``: every row decoded with the stored
+    codebooks, one product) up to ties; then the flat hybrid index
+    (B2) on the same rows at the same B, and ``mips_topk(method="approx")``
+    over the f32 rows at B = 512 (q/s, recall@100; the bench's approx line
+    is phase 20's);
+24. jsa training through IVF at full width: ``python -m
+    jsa_rag_tpu_torch.train``'s ``main`` with FLAGSHIP's options plus
+    ``--index_mode faiss --faiss_index_type ivfpq --faiss_code_size 32
+    --ivf_refine true --decouple_encoder true`` (the posterior scores with
+    the prior's passage tower, so the tower the index embeds with trains)
+    over the 16,384 text passages (auto: 128 lists, n_probe 8), 4 steps,
+    ``--refresh_index 0-5:3`` (the initial build, then k-means again at
+    step 3 on the live tower's rows): step times, each build's embed and
+    quantiser split, the IVF searches (two a step), peak memory; checks:
+    finite losses, valid ids, the refresh's centroids differ, the trained
+    index's pq scan returns ``check_pq_scan``'s pool (refine_r 4 x 10
+    rows) up to ties at n_probe 8 and 128, and a full-probe search of
+    main's recorded queries with the rescore pool over every row reaches
+    recall@10 ``RECALL_BAR`` against exact f32 over the refreshed rows
+    (this stands in for recall@10 at the run's pool of 40, which pq-32
+    cannot reach on the random towers' near-identical rows: that recall
+    is recorded, and the flat hybrid index's, B2, beside it); then
+    ``evaluate``'s ``main`` on the checkpoint and the saved IVF directory
+    with the same index flags over 16 questions, and ``python -m
+    jsa_rag_tpu_torch.serve`` on the saved IVF directory for 20 requests
+    (p50);
+25. Atlas interop at 1.3M rows: phase 23's rows as fp16 and the corpus
+    passages written by ``index.atlas_io.save_index_atlas_format`` as 128
+    Atlas shards, ``convert``ed back and ``load_index``ed (float16, refine
+    4) and searched at B = 8 through B4 (held against its plain version on
+    that scan); checks: the converted rows bit-equal to the exported ones,
+    the same ids as the float16 index they came from, a pq IVF fed by
+    ``load_atlas_into_index`` finalised and searching, and
+    ``import_atlas_retriever_towers`` on a ``model.pth.tar`` written at
+    bge-large geometry returning the towers' own arrays; the bytes and
+    seconds of each step. The records of phases 23-25 are one JSON line
+    of their own (they run no kernel), and every check of theirs is
+    logged again, one a line, before the last three lines.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, the ``kernels`` JSON object (B1-B9) and
@@ -230,6 +283,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 SEED = 0
@@ -2585,6 +2639,14 @@ def write_bge_large(torch, g, dev, path: str) -> None:
     """bge-large-en's geometry as a ``BertModel`` save: float32 weights in
     ``pytorch_model.bin`` (as the published model ships), the pooler
     included (the import ignores it)."""
+    sd = bge_large_state_dict(torch, g, dev)
+    write_hf_dir(path, BGE_LARGE_CONFIG)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+
+
+def bge_large_state_dict(torch, g, dev) -> dict:
+    """A ``BertModel`` state dict at bge-large-en's geometry, float32, on
+    the host, from ``g``."""
     c = BGE_LARGE_CONFIG
     h, f = c["hidden_size"], c["intermediate_size"]
     w, ones, zeros = hf_init(torch, g, dev, torch.float32)
@@ -2611,8 +2673,7 @@ def write_bge_large(torch, g, dev, path: str) -> None:
             sd[pre + name + ".bias"] = zeros(h)
     sd["pooler.dense.weight"] = w(h, h)
     sd["pooler.dense.bias"] = zeros(h)
-    write_hf_dir(path, c)
-    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    return sd
 
 
 def write_mistral(torch, g, dev, path: str, layers: int) -> int:
@@ -3425,6 +3486,635 @@ def recipe_phase(torch, mt, work, hf, run_dir, index_path, store, questions,
                           "peak_memory_bytes": run["peak"], **filt}}
 
 
+# ------------------------------------------------------------ phases 23-25
+# n_probe points of phase 23: 71 is the auto n_probe at 1.3M rows (1,140
+# lists / 16), 1,140 the full probe
+IVF_N_PROBES = (8, 32, 71, 1140)
+IVF_STORAGES = ("dense", "sq8+refine", "pq", "pq+refine")
+# the flagship FAISS setting: ivfpq, 32 bytes a row
+# (egs/NaturalQuestion/JSA/run-jsa-nq-no-rebuild.sh:56-57)
+IVF_CODE_SIZE = 32
+IVF_TRAIN_STEPS = 4
+ATLAS_SHARDS = 128  # Atlas's published layout
+CHECKS: list = []   # (phase, what, passed) of phases 23-25
+
+
+def check(phase: int, ok, what: str) -> None:
+    """Log one check of phases 23-25 on its own line and keep it for the
+    summary before the result lines; a failed check ends the run."""
+    CHECKS.append((phase, what, bool(ok)))
+    log(f"  check [{phase}] {what}: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"phase {phase}: {what}")
+
+
+def ivf_corpus(torch, dev):
+    """Phase 23's rows: ``N_INDEX`` x ``DIM`` clustered unit rows from
+    ``fill_clustered``'s generator, seeded on the card (phase 25 makes the
+    same rows again from the same seed)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    e32 = torch.empty((N_INDEX, DIM), dtype=torch.float32, device=dev)
+    fill_clustered(torch, g, types.SimpleNamespace(
+        set_embeddings=lambda start, block: None), e32, 0, N_INDEX)
+    return e32
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+# f32 products of another shape (the grouped scan's against one product
+# over every row) round apart by a few ulps; scores within this, relative
+# to max(1, |the row's top score|), are ties
+PQ_SCAN_TOL = 1e-4
+
+
+def check_pq_scan(torch, phase: int, idx, q, k: int, n_probes, what: str
+                  ) -> list:
+    """Hold a pq index's scan to a plain reference on the same index: every
+    row's codes decoded with the stored codebooks one subvector at a time,
+    ``(R q) . decode + q . centroid`` of its list in one product, rows
+    outside the batch's union of probed lists masked, the top ``K`` taken, where ``K`` is the pool the
+    search scores (``refine_r * k`` under refine, else ``k``). The search
+    runs with refine off, so it returns that pool. Ids must be equal except
+    where the reference scores of the ids that differ lie within
+    ``PQ_SCAN_TOL`` of its K-th score (a tie), and the pool's scores within
+    ``PQ_SCAN_TOL`` of the reference's, both relative to max(1, |the row's
+    top score|). -> one record per n_probe."""
+    big_k = min(idx.refine_r * k if idx.refine else k, idx.n_passages)
+    neg = float(torch.finfo(torch.float32).min)
+    q = q.float()
+    c = q @ idx.centroids.T
+    codes = idx.list_rows.long()
+    dec = torch.cat([idx.codebooks[j][codes[:, j]]
+                     for j in range(idx.codebooks.shape[0])], dim=1)
+    full = (q @ idx.pq_rotation.T) @ dec.T + c[:, idx.row_list]
+    del dec
+    out = []
+    for n_probe in n_probes:
+        # every query is scored against the batch's union of probed lists
+        probed = torch.topk(c, n_probe, dim=1).indices.reshape(-1)
+        inside = torch.zeros(c.shape[1], dtype=torch.bool,
+                             device=q.device).index_fill_(0, probed, True)
+        by_id = torch.full((q.shape[0], idx.n_passages), neg,
+                           device=q.device)
+        by_id[:, idx.list_ids.long()] = torch.where(
+            inside[idx.row_list][None], full, neg)
+        top, top_ids = torch.topk(by_id, big_k, dim=1)
+        refine, idx.refine = idx.refine, False
+        try:
+            s, ids = idx.search(q, big_k, n_probe=n_probe)
+        finally:
+            idx.refine = refine
+        # a union of fewer than K rows leaves -1 ids after its rows
+        n_valid = (by_id > neg).sum(1, keepdim=True).clamp(max=big_k)
+        valid = ids >= 0
+        ids = ids.long().clamp(min=0)
+        got = torch.zeros_like(by_id, dtype=torch.bool).scatter_(1, ids,
+                                                                 valid)
+        kth = top.gather(1, n_valid - 1)
+        tol = PQ_SCAN_TOL * top[:, :1].abs().clamp(min=1.0)
+        ok_ids = (torch.equal(valid.sum(1, keepdim=True), n_valid)
+                  and torch.equal(got.sum(1, keepdim=True), n_valid)
+                  # every id returned is in the pool or tied with its edge
+                  and bool((got <= (by_id >= kth - tol)).all())
+                  # every id clearly inside the pool is returned
+                  and bool(((by_id > kth + tol) <= got).all()))
+        err_rel = float(torch.where(
+            valid, (s - torch.gather(by_id, 1, ids)).abs() / tol, 0.0
+        ).max()) * PQ_SCAN_TOL
+        ref = torch.zeros_like(got).scatter_(1, top_ids, top > neg)
+        differ = int((got & ~ref).sum())
+        out.append({"n_probe": n_probe, "pool": big_k,
+                    "max_rel_err": err_rel, "ids_differing_at_ties": differ})
+        check(phase, ok_ids and err_rel <= PQ_SCAN_TOL,
+              f"{what}, n_probe {n_probe}: the pq scan's top {big_k} "
+              f"against a plain decode-and-multiply over every row: same "
+              f"ids up to ties ({differ} differ at the boundary), scores "
+              f"within {err_rel:.3g} <= {PQ_SCAN_TOL} of max(1, |top|)")
+    return out
+
+
+def ivf_phase(torch, mt, dev, approx_line: dict) -> dict:
+    """Phase 23: IVF at the flagship index geometry; -> its records and
+    B2's launches on the flat hybrid comparison."""
+    from jsa_rag_tpu_torch.analysis import ivf_sweep
+    from jsa_rag_tpu_torch.analysis.storage_recall_bench import \
+        perturbed_queries
+    from jsa_rag_tpu_torch.bench import recall_at
+    from jsa_rag_tpu_torch.index import load_index
+    from jsa_rag_tpu_torch.index.flat import ShardedFlatIndex
+    from jsa_rag_tpu_torch.index.ivf import auto_n_lists
+    from jsa_rag_tpu_torch.ops.mips import mips_topk, mips_topk_exact
+
+    n_lists = auto_n_lists(N_INDEX)
+    n_probes = sorted({min(p, n_lists) for p in IVF_N_PROBES})
+    log(f"[23] IVF at {N_INDEX} x {DIM} (clustered unit rows): n_lists "
+        f"{n_lists} (auto), n_probe {n_probes} (auto {n_lists // 16}); "
+        f"storages {', '.join(IVF_STORAGES)} (pq: code_size "
+        f"{IVF_CODE_SIZE}, the flagship ivfpq); recall@{TOPK} against "
+        f"exact f32, searched 8 queries at a time, of two sets of 64: rows "
+        f"plus 0.3 noise a coordinate, normalised (the storage bench's; "
+        f"nearly random directions), and rows plus 0.05 (ivf_sweep's); "
+        f"search ms on the first")
+    t0 = time.perf_counter()
+    e32 = ivf_corpus(torch, dev)
+    queries = {"perturbed": perturbed_queries(e32, 64, SEED + 24),
+               "sweep": ivf_sweep.sweep_queries(e32, 64, SEED + 24)}
+    oracles = {k: mips_topk_exact(q, e32, TOPK)[1]
+               for k, q in queries.items()}
+    q = queries["perturbed"]
+    log(f"  rows and oracles: {time.perf_counter() - t0:.1f} s")
+    cells = {}
+    for name in IVF_STORAGES:
+        idx = ivf_sweep.build(name, e32, n_lists, IVF_CODE_SIZE, SEED)
+        rows = ivf_sweep.measure(idx, name, q, oracles["perturbed"], TOPK,
+                                 n_probes, IVF_CODE_SIZE, recall_batch=8,
+                                 iters=5)
+        swept = ivf_sweep.measure(idx, name, queries["sweep"],
+                                  oracles["sweep"], TOPK, n_probes,
+                                  IVF_CODE_SIZE, recall_batch=8,
+                                  time_search=False)
+        cells[name] = {"build_s": idx.build_s, "cap": idx.cap,
+                       "largest_list": rows[0]["largest_list"],
+                       "stored_bytes": rows[0]["stored_bytes"],
+                       "padded_bytes": rows[0]["padded_bytes"],
+                       "bytes_per_vec": rows[0]["bytes_per_vec"],
+                       "by_n_probe": [
+                           {"n_probe": r["n_probe"], "unfilled": r["unfilled"]
+                            + w["unfilled"], "search_ms": r["search_ms"],
+                            "recall_perturbed": r[f"recall@{TOPK}"],
+                            "hits_perturbed": r["hits"],
+                            "recall_sweep": w[f"recall@{TOPK}"],
+                            "hits_sweep": w["hits"]}
+                           for r, w in zip(rows, swept)]}
+        log(f"  {name}: largest list {rows[0]['largest_list']} rows (mean "
+            f"{N_INDEX / n_lists:.0f}), cap {idx.cap}; stored "
+            f"{rows[0]['stored_bytes']} bytes packed, "
+            f"{rows[0]['padded_bytes']} in the (C, cap) layout on disk "
+            f"({rows[0]['bytes_per_vec']} a row in the lists); build "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in idx.build_s.items()))
+        for r in cells[name]["by_n_probe"]:
+            log(f"    n_probe {r['n_probe']}: recall@{TOPK} "
+                f"{r['recall_perturbed']:.4f} (perturbed), "
+                f"{r['recall_sweep']:.4f} (sweep), unfilled {r['unfilled']}"
+                f"; search " + ", ".join(f"B={b} {ms:.3f} ms" for b, ms in
+                                         r["search_ms"].items()))
+        if name.startswith("pq"):
+            cells[name]["scan_reference"] = check_pq_scan(
+                torch, 23, idx, q[:8], TOPK, (idx.n_probe, n_lists), name)
+        if name == "sq8+refine":
+            again = ivf_sweep.build(name, e32, n_lists, IVF_CODE_SIZE, SEED)
+            check(23, again.offsets == idx.offsets and all(
+                torch.equal(getattr(again, a), getattr(idx, a))
+                for a in ("centroids", "list_ids", "list_rows", "list_scales",
+                          "list_rows_f16")),
+                "a second sq8 + refine build from the same seed: identical "
+                "centroids, lists, ids, rows, scales and fp16 copy")
+            del again
+        if name == "pq":
+            path = tempfile.mkdtemp(prefix="chip_smoke_ivf_")
+            try:
+                t0 = time.perf_counter()
+                idx.save(path)
+                back = load_index(path, device=dev)
+                cells[name]["save_load_s"] = time.perf_counter() - t0
+                cells[name]["disk_bytes"] = dir_bytes(path)
+                same = True
+                for b in (8, 64):
+                    s1, i1 = idx.search(q[:b], TOPK)
+                    s2, i2 = back.search(q[:b], TOPK)
+                    same = same and torch.equal(i1, i2) and torch.equal(s1,
+                                                                        s2)
+                check(23, same, f"pq save ({cells[name]['disk_bytes']} "
+                      f"bytes) -> load: the same ids and scores at B=8 and "
+                      f"64, bit for bit")
+                del back
+            finally:
+                shutil.rmtree(path, ignore_errors=True)
+        del idx
+        torch.cuda.empty_cache()
+    for qs in queries:
+        rec = {name: [r[f"recall_{qs}"] for r in cells[name]["by_n_probe"]]
+               for name in IVF_STORAGES}
+        hits = {name: [r[f"hits_{qs}"] for r in cells[name]["by_n_probe"]]
+                for name in IVF_STORAGES}
+        for name in ("dense", "sq8+refine"):
+            check(23, rec[name][-1] >= RECALL_BAR,
+                  f"{qs} queries, {name} at full probe: recall@{TOPK} "
+                  f"{rec[name][-1]:.4f} >= {RECALL_BAR}")
+        check(23, all(r >= p for r, p in zip(hits["pq+refine"],
+                                             hits["pq"])),
+              f"{qs} queries: pq + refine beats plain pq at each n_probe "
+              f"(hits {hits['pq+refine']} against {hits['pq']})")
+        for name in IVF_STORAGES:
+            # hits, not recall: two equal counts can round to means that
+            # differ in the last bit
+            check(23, all(b >= a for a, b in zip(hits[name],
+                                                 hits[name][1:])),
+                  f"{qs} queries, {name}: recall does not fall as n_probe "
+                  f"rises (hits of {64 * TOPK}: {hits[name]})")
+    for name in IVF_STORAGES:
+        check(23, all(r["unfilled"] == 0 for r in cells[name]["by_n_probe"]
+                      if r["n_probe"] >= 8),
+              f"{name}: no -1 id at n_probe >= 8 with k = {TOPK}")
+
+    # the flat hybrid index over the same rows (B2), searched the same way
+    t0 = time.perf_counter()
+    flat = ShardedFlatIndex(N_INDEX, DIM, "hybrid", device=dev)
+    for s in range(0, N_INDEX, 65_536):
+        flat.set_embeddings(s, e32[s:s + 65_536])
+    mt.scan_topt_int8.launches = 0  # main path starts
+    ids = {k: torch.cat([flat.search(x[i:i + 8], TOPK)[1]
+                         for i in range(0, x.shape[0], 8)])
+           for k, x in queries.items()}
+    flat_ms = {b: host_ms(lambda: flat.search(q[:b], TOPK), 5)
+               for b in (8, 64)}
+    launches = mt.scan_topt_int8.launches  # main path ends
+    flat_cell = {f"recall_{k}": recall_at(v.cpu(), oracles[k].cpu(), TOPK)
+                 for k, v in ids.items()}
+    flat_cell.update(search_ms=flat_ms, launches=launches,
+                     build_s=time.perf_counter() - t0)
+    log(f"  flat hybrid (B2) on the same rows: recall@{TOPK} "
+        f"{flat_cell['recall_perturbed']:.4f} (perturbed), "
+        f"{flat_cell['recall_sweep']:.4f} (sweep); search B=8 "
+        f"{flat_ms[8]:.3f} ms, B=64 {flat_ms[64]:.3f} ms; B2 launches "
+        f"{launches}")
+    check(23, launches >= 1, "the flat hybrid comparison launched B2")
+    del flat, ids
+    torch.cuda.empty_cache()
+
+    # the approximate scan over the f32 rows at the bench's batch
+    qa = torch.randn((512, DIM), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 25))
+    _, want = mips_topk_exact(qa, e32, TOPK)
+    _, got = mips_topk(qa, e32, TOPK, method="approx")
+    approx_ms = host_ms(lambda: mips_topk(qa, e32, TOPK, method="approx"), 3)
+    approx = {"recall": recall_at(got.cpu(), want.cpu(), TOPK),
+              "ms": approx_ms, "qps": 512 / (approx_ms / 1e3),
+              "bench": approx_line}
+    log(f"  mips_topk(method=\"approx\") over the f32 rows, B=512: "
+        f"{approx_ms:.2f} ms ({approx['qps']:.0f} q/s), recall@{TOPK} "
+        f"{approx['recall']:.4f}; the bench's approx (phase 20, bf16 rows): "
+        f"{approx_line['value']:.0f} q/s, recall@100 "
+        f"{approx_line['recall@100']:.4f}")
+    check(23, approx["recall"] >= RECALL_BAR and
+          approx_line["recall@100"] >= RECALL_BAR,
+          f"approx recall@{TOPK} >= {RECALL_BAR} (mips_topk and the bench)")
+    del e32, qa, want, got, queries, oracles
+    torch.cuda.empty_cache()
+    return {"n_lists": n_lists, "cells": cells, "flat_hybrid": flat_cell,
+            "approx": approx, "launches": launches}
+
+
+def ivf_train_phase(torch, mt, dev) -> dict:
+    """Phase 24: jsa training, evaluate and serve through IVF (ivfpq,
+    code_size 32, refine) at full width over the text passages; -> its
+    records and B2's launches on the flat hybrid comparison."""
+    from jsa_rag_tpu_torch.bench import recall_at
+    from jsa_rag_tpu_torch.data import PassageStore
+    from jsa_rag_tpu_torch.index.flat import ShardedFlatIndex
+    from jsa_rag_tpu_torch.index.ivf import ShardedIVFIndex
+    from jsa_rag_tpu_torch.ops.mips import mips_topk_exact
+    from jsa_rag_tpu_torch.serve.__main__ import main as serve_main
+    from jsa_rag_tpu_torch.serve.client import call_retrieve_api
+    from jsa_rag_tpu_torch.train import modes, rag_model
+    from jsa_rag_tpu_torch.train.optim import AdamW
+
+    index_flags = ["--index_mode", "faiss", "--faiss_index_type", "ivfpq",
+                   "--faiss_code_size", str(IVF_CODE_SIZE), "--ivf_refine",
+                   "true"]
+    log(f"[24] jsa training, evaluate and serve through IVF at full width "
+        f"(bge-large towers, ~1B generator, bf16, LoRA): {' '.join(index_flags)}"
+        f" over the {N_TEXT} text passages (auto lists and n_probe), "
+        f"{IVF_TRAIN_STEPS} steps, one refresh at step 3 (the first "
+        f"update with a non-zero learning rate is step 2's)")
+    no_kernel = types.SimpleNamespace(launches=0)  # IVF runs no kernel
+    work = tempfile.mkdtemp(prefix="chip_smoke_ivf_train_")
+    server = None
+    try:
+        store = PassageStore.synthetic(N_TEXT, seed=SEED)
+        passages = os.path.join(work, "passages_text.jsonl")
+        with open(passages, "w") as f:
+            for i in range(N_TEXT):
+                f.write(json.dumps(store[i]) + "\n")
+        train_data = write_questions(torch, os.path.join(work, "train.jsonl"),
+                                     store, 64, SEED + 2)
+        ivf_dir = os.path.join(work, "index_ivfpq")
+        ck = os.path.join(work, "ck")
+        # --decouple_encoder: the posterior scores with the prior's passage
+        # tower, so the tower the index embeds with trains (under the
+        # flagship options alone it only decays, below bf16's resolution,
+        # and a refresh would cluster the same rows again)
+        argv = FLAGSHIP + index_flags + [
+            "--decouple_encoder", "true",
+            "--device", dev.type, "--passages", passages,
+            "--train_data", train_data, "--checkpoint_dir", ck,
+            "--name", "train-ivf", "--total_steps", str(IVF_TRAIN_STEPS),
+            "--warmup_steps", "2", "--save_freq", str(IVF_TRAIN_STEPS),
+            "--log_freq", "1", "--eval_freq", "1000000",
+            "--refresh_index", "0-5:3", "--save_index_path", ivf_dir]
+        finals, builds = [], []
+        real_finalize = ShardedIVFIndex.finalize
+        real_build = rag_model.RAGModel.build_index
+
+        def recorded_finalize(self, **kw):
+            rows = self._staging[:self.n_passages].clone()
+            real_finalize(self, **kw)
+            finals.append((self.centroids.clone(), rows))
+
+        def recorded_build(self, index, params, iter_stats=None):
+            t = time.perf_counter()
+            out = real_build(self, index, params, iter_stats)
+            builds.append({**{k: v[0] for k, v in out.items()},
+                           "wall_s": time.perf_counter() - t,
+                           **{f"train_{k}": v
+                              for k, v in index.build_s.items()}})
+            return out
+
+        parts = [(modes, "_embed_rows", "union embed"),
+                 (modes, "_per_row_ce", "generator CE"),
+                 (torch.autograd, "grad", "backward"),
+                 (AdamW, "step", "optimizer")]
+        ShardedIVFIndex.finalize = recorded_finalize
+        rag_model.RAGModel.build_index = recorded_build
+        try:
+            run = timed_train_main(torch, argv, no_kernel,
+                                   (ShardedIVFIndex, "search"), parts)
+        finally:
+            ShardedIVFIndex.finalize = real_finalize
+            rag_model.RAGModel.build_index = real_build
+        run_dir = os.path.join(ck, "train-ivf")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        log(f"  train main: {run['main_s']:.1f} s, {run['final_step']} "
+            f"steps; peak memory {run['peak'] / 2**30:.2f} GiB")
+        steps = step_records(run, metrics, ("loss/train_loss",
+                                            "loss/generator_loss",
+                                            "accept_rate"), IVF_TRAIN_STEPS)
+        check(24, run["final_step"] == IVF_TRAIN_STEPS,
+              f"{IVF_TRAIN_STEPS} steps, every loss finite")
+        for n, b in enumerate(builds):
+            log(f"  index build {n}: runtime/indexing "
+                f"{b['runtime/indexing']:.2f} s = embed "
+                f"{b['indexing/embed_s']:.2f} s + quantiser "
+                f"{b['indexing/finalize_s']:.2f} s (k-means "
+                f"{b['train_kmeans']:.2f}, codebooks "
+                f"{b['train_codebooks']:.2f}, encode and scatter "
+                f"{b['train_encode_scatter']:.2f})")
+        refreshed = [m["step"] for m in metrics if "runtime/indexing" in m]
+        check(24, len(builds) == len(finals) == 2 and refreshed == [3],
+              f"the initial build and one refresh at step 3 trained the "
+              f"quantiser (refreshed at {refreshed})")
+        moved = float((finals[1][1] - finals[0][1]).abs().max())
+        check(24, moved > 0 and not torch.equal(finals[0][0], finals[1][0]),
+              f"the refresh retrained the lists on the live tower's rows "
+              f"(moved up to {moved:.3g}): the centroids differ from the "
+              f"initial build's")
+        searches = run["calls"]
+        check(24, len(searches) == 2 * IVF_TRAIN_STEPS,
+              f"ShardedIVFIndex.search calls: {len(searches)} (two a step)")
+        ids = torch.cat([out[1].reshape(-1) for _, _, out in searches])
+        check(24, int(ids.min()) >= 0 and int(ids.max()) < N_TEXT,
+              "every retrieved id valid")
+        sidx = searches[-1][0][0]
+        q = torch.cat([args[1] for args, _, _ in searches]).float()
+        rows = finals[-1][1]
+        _, oracle = mips_topk_exact(q, rows, 10)
+        # full probe at the run's rescore pool (refine_r 4: the pq-32
+        # ranking picks the 40 rows rescored), then with the pool over
+        # every row, where the result is the stored fp16 rows' own ranking:
+        # the check that the lists, ids and rows are the refreshed ones
+        _, got = sidx.search(q, 10, n_probe=sidx.n_lists)
+        pool_r10 = recall_at(got.cpu(), oracle.cpu(), 10)
+        scan_ref = check_pq_scan(
+            torch, 24, sidx, q, 10, (sidx.n_probe, sidx.n_lists),
+            "the trained ivfpq-32 + refine index, main's recorded queries")
+        run_r = sidx.refine_r
+        sidx.refine_r = -(-N_TEXT // 10)
+        _, got = sidx.search(q, 10, n_probe=sidx.n_lists)
+        sidx.refine_r = run_r
+        r10 = recall_at(got.cpu(), oracle.cpu(), 10)
+        flat = ShardedFlatIndex(N_TEXT, DIM, "hybrid", device=dev)
+        flat.set_embeddings(0, rows)
+        mt.scan_topt_int8.launches = 0  # main path starts
+        _, fids = flat.search(q, 10)
+        launches = mt.scan_topt_int8.launches  # main path ends
+        flat_r10 = recall_at(fids.cpu(), oracle.cpu(), 10)
+        largest = max(b - a for a, b in zip(sidx.offsets, sidx.offsets[1:]))
+        log(f"  {q.shape[0]} recorded queries, full probe ({sidx.n_lists} "
+            f"lists, the largest {largest} rows): recall@10 against exact "
+            f"f32 over the refreshed rows {pool_r10:.4f} at refine_r "
+            f"{run_r} (the pq-32 ranking), {r10:.4f} with the rescore pool "
+            f"over every row; the flat hybrid index (B2, {launches} "
+            f"launches) {flat_r10:.4f}")
+        check(24, r10 >= RECALL_BAR,
+              f"full probe, the rescore pool over every row: recall@10 "
+              f"{r10:.4f} >= {RECALL_BAR} against exact f32 over the "
+              f"refreshed rows (the stored lists, ids and rows are the "
+              f"refreshed ones)")
+        del flat, rows, finals
+        torch.cuda.empty_cache()
+
+        # evaluate on the checkpoint with the same index flags, over the
+        # IVF directory training saved (a rebuild would take ~18 s more)
+        questions = write_questions(torch, os.path.join(work, "q16.jsonl"),
+                                    store, 16, SEED)
+        eval_argv = FLAGSHIP + index_flags + [
+            "--decouple_encoder", "true", "--load_index_path", ivf_dir,
+            "--device", dev.type, "--model_path", run_dir,
+            "--passages", passages, "--eval_data", questions,
+            "--per_gpu_batch_size", "8", "--generation_max_length", "32",
+            "--checkpoint_dir", ck, "--name", "eval-ivf"]
+        ev = timed_eval_main(torch, eval_argv, no_kernel,
+                             [(ShardedIVFIndex, "search")])
+        ev_metrics = ev["results"]["q16.jsonl"]
+        batches = log_eval_batches(ev)
+        log(f"  evaluate main: {ev['main_s']:.1f} s, "
+            f"{len(ev['calls'][0])} IVF searches, metrics " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sorted(ev_metrics.items())))
+        check(24, len(ev["calls"][0]) >= 2 and all(
+            math.isfinite(v) for v in ev_metrics.values()),
+            "evaluate through IVF: every batch searched, metrics finite")
+        del ev["calls"]
+
+        # serve the saved IVF directory
+        server = serve_main(["--index_path", ivf_dir, "--passages", passages,
+                             "--port", "0", "--device", dev.type],
+                            block=False)
+        url = f"http://127.0.0.1:{server.port}"
+        host = q.cpu().numpy()
+        latencies, answers = [], []
+        for r in range(20):
+            t0 = time.perf_counter()
+            answers.append(call_retrieve_api(host[2 * r % len(host):][:2],
+                                             topk=10, url=url))
+            latencies.append(time.perf_counter() - t0)
+        latencies.sort()
+        p50 = 1e3 * latencies[len(latencies) // 2]
+        whole = all(len(row) == 10 and all(row) for docs, _ in answers
+                    for row in docs)
+        scores = torch.tensor([s for _, sc in answers for s in sc])
+        log(f"  serve the saved IVF directory: 20 /retrieve requests (2 "
+            f"rows, topk 10), p50 {p50:.1f} ms")
+        check(24, whole and bool(torch.isfinite(scores).all()),
+              "every served row holds 10 passages with finite scores")
+        return {"steps": steps, "builds": builds, "recall_at_10": r10,
+                "recall_at_10_refine_r4": pool_r10, "largest_list": largest,
+                "scan_reference": scan_ref,
+                "flat_hybrid_recall_at_10": flat_r10, "launches": launches,
+                "train_main_s": run["main_s"], "peak_memory_bytes":
+                run["peak"], "evaluate": {"main_s": ev["main_s"],
+                                          "batches": batches,
+                                          "metrics": ev_metrics},
+                "serve_p50_ms": p50}
+    finally:
+        if server is not None:
+            server.stop()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def atlas_phase(torch, mt, dev) -> dict:
+    """Phase 25: Atlas interop at the flagship geometry; -> its records,
+    B4's launches on the converted index and B4's error there."""
+    import numpy as np
+
+    from jsa_rag_tpu_torch.data import PassageStore
+    from jsa_rag_tpu_torch.index import atlas_io, flat, load_index
+    from jsa_rag_tpu_torch.index.flat import ShardedFlatIndex
+    from jsa_rag_tpu_torch.index.ivf import ShardedIVFIndex
+    from jsa_rag_tpu_torch.models.hf_import import import_bert
+
+    log(f"[25] Atlas interop: phase 23's {N_INDEX} x {DIM} rows as fp16 and "
+        f"the corpus passages exported to {ATLAS_SHARDS} shards, converted "
+        f"back, loaded (float16, refine 4: B4) and searched; a pq IVF fed "
+        f"from the shards; the towers of a model.pth.tar at bge-large "
+        f"geometry")
+    work = tempfile.mkdtemp(prefix="chip_smoke_atlas_")
+    secs, sizes = {}, {}
+    try:
+        t0 = time.perf_counter()
+        e32 = ivf_corpus(torch, dev)
+        f16 = ShardedFlatIndex(N_INDEX, DIM, "float16", device=dev)
+        for s in range(0, N_INDEX, 65_536):
+            f16.set_embeddings(s, e32[s:s + 65_536])
+        del e32
+        torch.cuda.empty_cache()
+        store = PassageStore.synthetic(N_TEXT, seed=SEED)
+        passages = [store[i] for i in range(N_TEXT)] + [
+            {"id": str(i), "title": "cluster", "text": f"row {i}"}
+            for i in range(N_TEXT, N_INDEX)]
+        secs["rows_and_passages"] = time.perf_counter() - t0
+
+        atlas = os.path.join(work, "atlas")
+        t0 = time.perf_counter()
+        atlas_io.save_index_atlas_format(f16, passages, atlas,
+                                         total_saved_shards=ATLAS_SHARDS)
+        secs["export"] = time.perf_counter() - t0
+        sizes["atlas"] = dir_bytes(atlas)
+        check(25, atlas_io.detect_n_shards(atlas) == ATLAS_SHARDS,
+              f"the export wrote {ATLAS_SHARDS} embeddings/passages pairs")
+        conv = os.path.join(work, "converted")
+        t0 = time.perf_counter()
+        meta = atlas_io.convert_atlas_index(atlas, conv)
+        secs["convert"] = time.perf_counter() - t0
+        sizes["converted"] = dir_bytes(conv)
+        t0 = time.perf_counter()
+        loaded = load_index(conv, device=dev, refine_r=4)
+        secs["load_index"] = time.perf_counter() - t0
+        log_disk("the Atlas shards and their conversion")
+        n = N_INDEX
+        check(25, meta["n_passages"] == n and loaded.storage == "float16"
+              and torch.equal(loaded.embeddings[:n].view(torch.int16),
+                              f16.embeddings[:n].view(torch.int16)),
+              "the converted rows are bit-equal to the exported fp16 rows")
+
+        g = torch.Generator(device=dev).manual_seed(SEED + 26)
+        pick = torch.randint(0, n, (8,), generator=g, device=dev)
+        q = f16.embeddings[pick].float() + 0.3 * torch.randn(
+            (8, DIM), generator=g, device=dev)
+        q = q / q.norm(dim=1, keepdim=True)
+        with recording(flat, "mips_topk_t", 1) as calls:
+            mt.scan_topt_f16h.launches = 0  # main path starts
+            t0 = time.perf_counter()
+            _, i_conv = loaded.search(q, TOPK)
+            torch.cuda.synchronize()
+            secs["search_b8_first"] = time.perf_counter() - t0
+            launches = mt.scan_topt_f16h.launches  # main path ends
+        _, i_ref = f16.search(q, TOPK)
+        check(25, launches >= 1 and torch.equal(i_conv, i_ref),
+              f"the converted index's B=8 search ({launches} B4 launches): "
+              f"the same ids as the float16 index built from the same rows")
+        max_err = compare_f16_call(mt, calls[0], "the converted index's "
+                                   "first scan")
+        search_ms = host_ms(lambda: loaded.search(q, TOPK), 10)
+        log(f"  converted index search B=8: {search_ms:.3f} ms")
+        del loaded, f16, calls
+        torch.cuda.empty_cache()
+
+        ivf = ShardedIVFIndex(n, DIM, device=dev, storage="pq",
+                              code_size=IVF_CODE_SIZE)
+        t0 = time.perf_counter()
+        written = atlas_io.load_atlas_into_index(ivf, atlas)
+        torch.cuda.synchronize()
+        secs["load_into_pq_ivf"] = time.perf_counter() - t0
+        _, iv = ivf.search(q, TOPK)
+        check(25, written == n and ivf._staging is None
+              and ivf.codebooks is not None,
+              f"load_atlas_into_index into a pq IVF finalised it "
+              f"(build {', '.join(f'{k} {v:.2f} s' for k, v in ivf.build_s.items())})")
+        check(25, int(iv.min()) >= 0 and int(iv.max()) < n,
+              "the pq IVF fed from the shards serves a search: ids valid")
+        del ivf
+        torch.cuda.empty_cache()
+
+        layers = BGE_LARGE_CONFIG["num_hidden_layers"]
+        tg = torch.Generator(device=dev).manual_seed(SEED + 27)
+        qsd = bge_large_state_dict(torch, tg, dev)
+        psd = bge_large_state_dict(torch, tg, dev)
+        path = os.path.join(work, "model.pth.tar")
+        t0 = time.perf_counter()
+        torch.save({"model": {
+            **{f"retriever.query_contriever.{k}": v for k, v in qsd.items()},
+            **{f"retriever.passage_contriever.{k}": v
+               for k, v in psd.items()},
+            "generator.lm_head.weight": torch.zeros(1)}, "step": 0}, path)
+        secs["write_checkpoint"] = time.perf_counter() - t0
+        sizes["checkpoint"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        towers = atlas_io.import_atlas_retriever_towers(path, layers)
+        secs["import_towers"] = time.perf_counter() - t0
+
+        def leaves(tree):
+            if isinstance(tree, dict):
+                return [x for k in sorted(tree) for x in leaves(tree[k])]
+            if isinstance(tree, (list, tuple)):
+                return [x for v in tree for x in leaves(v)]
+            return [tree]
+
+        same = towers is not None and all(
+            np.array_equal(a, b) for tower, sd in zip(towers, (qsd, psd))
+            for a, b in zip(leaves(tower), leaves(import_bert(sd, layers))))
+        last = f"encoder.layer.{layers - 1}.attention.self.query.weight"
+        same = same and all(
+            np.array_equal(tower["embed"]["word"],
+                           sd["embeddings.word_embeddings.weight"].numpy())
+            and np.array_equal(tower["layers"][-1]["q_w"],
+                               sd[last].numpy().T)
+            for tower, sd in zip(towers, (qsd, psd)))
+        check(25, same, f"import_atlas_retriever_towers at bge-large "
+              f"geometry ({layers} layers a tower): the towers' own arrays")
+        log(f"  bytes: Atlas shards {sizes['atlas']}, converted "
+            f"{sizes['converted']}, checkpoint {sizes['checkpoint']}; "
+            f"seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                    secs.items()))
+        return {"seconds": secs, "bytes": sizes, "launches": launches,
+                "max_abs_err": max_err, "search_b8_ms": search_ms}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def row_kernels(bp: dict, errs: dict) -> list:
     """B6's-B9's entries of the kernels line from phases 19 and 20, each
     beside the bench line that drove it."""
@@ -3561,7 +4251,8 @@ def main() -> None:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     row_errs = rows_phase(torch, mt, ms, g, dev)
-    rows = row_kernels(bench_phase(torch, mt, ms, dev, row_errs), row_errs)
+    bp = bench_phase(torch, mt, ms, dev, row_errs)
+    rows = row_kernels(bp, row_errs)
     torch.cuda.empty_cache()
     hf = hf_phase(torch, mt, g, dev)
     # B2's launches on every path that drove it: phase 11's jsa steps,
@@ -3576,7 +4267,29 @@ def main() -> None:
                             recipe["max_abs_err"])
     b2["recipe"] = recipe
     b2["hf"] = hf
+    torch.cuda.empty_cache()
+    ivf = ivf_phase(torch, mt, dev, bp["bench"]["approx"])
+    torch.cuda.empty_cache()
+    ivf_train = ivf_train_phase(torch, mt, dev)
+    torch.cuda.empty_cache()
+    atlas = atlas_phase(torch, mt, dev)
+    # the flat hybrid searches beside IVF (phases 23, 24) launched B2; the
+    # Atlas-converted float16 index (phase 25) B4
+    b2["launches_by_path"].update(
+        ivf_flat_hybrid_comparison=ivf.pop("launches"),
+        ivf_train_flat_hybrid_comparison=ivf_train.pop("launches"))
+    b2["launches"] = sum(b2["launches_by_path"].values())
+    b4["launches_by_path"] = {"train_rag_f16": b4["launches"],
+                              "atlas_converted_f16": atlas.pop("launches")}
+    b4["launches"] = sum(b4["launches_by_path"].values())
+    b4["max_abs_err"] = max(b4["max_abs_err"], atlas.pop("max_abs_err"))
 
+    # phases 23-25 run PyTorch ops, no kernel: their records stand apart
+    # from the kernels line
+    log(json.dumps({"ivf": ivf, "ivf_train": ivf_train, "atlas": atlas}))
+    log(f"checks of phases 23-25: {len(CHECKS)}, all passed")
+    for phase, what, ok in CHECKS:
+        log(f"  [{phase}] {'ok' if ok else 'FAILED'}: {what}")
     log(f"smoke took {time.perf_counter() - t_start:.0f} s")
     log(smi)
     log(json.dumps({"kernels": [b1, b3, b2, b4, b5, *rows]}))

@@ -12,7 +12,9 @@ and concat modes (``python -m jsa_rag_tpu_torch.train``), every flat index
 storage, the MIPS benches, HF checkpoint directories read without
 ``transformers`` (``models/hf_import.py``), the llama/GQA and gpt2
 generators, bf16 parameter storage, the rerank and a profiler trace of
-chosen steps; and the hand-written CUDA kernels behind the scans
+chosen steps, the IVF indexes (the reference's FAISS ivfflat/ivfsq/ivfpq
+modes) with k-means, the approximate search, the Atlas index interop
+(``index/atlas_io.py``); and the hand-written CUDA kernels behind the scans
 (``csrc/``). Every entry point takes an explicit device and
 defaults to ``cuda``; asking for ``cuda`` where there is none raises
 (``device.resolve_device``), nothing falls back to the CPU on its own.

@@ -21,7 +21,9 @@ wrapper: ``int8r`` (kernel B1), ``int8r_rows1`` and ``hybrid`` (B2),
 ``pallas2f16t`` (B4), ``pallas2f16t_exact`` (B5), ``pallas2t`` (B3),
 ``pallas2`` (B6), ``pallas`` (B9), ``int8t`` (B2 over int8 storage, no
 refine: the method of ``--index_dtype int8``, which the JAX bench names but
-does not define); ``approx`` raises (ROADMAP queue A item 14). Only the
+does not define); ``approx`` (``ops.mips.mips_topk_approx`` over the
+bf16 rows, as ``bench.py:192``: chunked f32 products, each chunk's top-k
+selected exactly, no kernel). Only the
 store the method needs is built, on the device, by the port's flat index
 in row chunks (a monolithic quantise of 1.3M x 1024 f32
 holds ~11 GB of intermediates), beside bf16 rows for the floor. On the
@@ -43,7 +45,7 @@ from .config import Options
 from .device import exact_f32_matmul, resolve_device
 from .index.flat import ShardedFlatIndex
 from .ops import mips_topt as mt
-from .ops.mips import APPROX_NOT_PORTED, mips_topk_exact
+from .ops.mips import mips_topk_approx, mips_topk_exact
 from .ops.mips_stream import mips_topk_stream
 
 CHUNK = 65_536  # rows made and stored at a time
@@ -116,6 +118,8 @@ def methods(n: int, k: int) -> dict:
             q.to(bf16), x.embeddings[:n], k)),
         "pallas": ("bfloat16", lambda q, x: mips_topk_stream(
             q.to(bf16), x.embeddings[:n], k)),
+        "approx": ("bfloat16", lambda q, x: mips_topk_approx(
+            q, x.embeddings[:n], k)),
         "hybrid": ("hybrid", lambda q, x: mt.mips_topk_int8_t(
             q, *x.hybrid_copies(), k, refine=4, f16_rows=x.embeddings,
             **pool)),
@@ -181,12 +185,10 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     method = args.method or default_method(
         Options(index_dtype=args.index_dtype))
-    if method == "approx":
-        raise NotImplementedError(APPROX_NOT_PORTED)
     table = methods(args.n, args.k)
     if method not in table:
         raise ValueError(f"unknown bench method {method!r}; one of "
-                         f"{sorted(table)} or approx")
+                         f"{sorted(table)}")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         exact_f32_matmul()

@@ -1,6 +1,7 @@
 """Index construction and loading (counterpart of
-``jsa_rag_tpu/index/__init__.py``): flat float16, int8r, int8, hybrid,
-bfloat16 and float32 in this port so far."""
+``jsa_rag_tpu/index/__init__.py``): the flat index in every storage and the
+IVF index (dense, sq8, pq; the reference's FAISS ivfflat / ivfsq / ivfpq /
+pq modes)."""
 
 from __future__ import annotations
 
@@ -8,23 +9,40 @@ import json
 import os
 
 from .flat import ShardedFlatIndex
+from .ivf import ShardedIVFIndex
+
+FAISS_STORAGE = {"ivfflat": "dense", "ivfsq": "sq8", "ivfpq": "pq",
+                 "pq": "pq"}
 
 
 def build_index_for(opt, n_passages: int, dim: int, device="cuda"):
     """Construct the index an options object asks for (``index_mode``,
-    ``faiss_index_type``, ``index_dtype``, ``int8r_refine``, ``refine_r``
-    — the JAX package's flag names). IVF and PQ modes are ROADMAP queue A
-    item 14. ``refine_gather`` has no effect: the port's store is already
-    row-major."""
-    mode = opt.index_mode
-    if mode == "faiss" and opt.faiss_index_type == "flat":
-        mode = "flat"
-    if mode != "flat":
-        raise NotImplementedError(
-            f"index_mode {opt.index_mode!r} is not ported yet: IVF/PQ "
-            "indexes are ROADMAP queue A item 14")
-    idx = ShardedFlatIndex(n_passages, dim, dtype=opt.index_dtype,
-                           device=device, int8r_refine=opt.int8r_refine)
+    ``faiss_index_type``, ``faiss_code_size``, ``ivf_n_lists``,
+    ``ivf_n_probe``, ``ivf_refine``, ``index_dtype``, ``int8r_refine``,
+    ``refine_r`` — the JAX package's flag names). ``--index_mode faiss``
+    follows the reference's flags: flat -> the flat index; ivfflat -> IVF
+    dense; ivfsq -> IVF sq8; ivfpq -> IVF pq of ``faiss_code_size`` bytes a
+    row; pq -> pq with one list, fully probed. ``refine_gather`` has no
+    effect: the port's store is already row-major. Any other mode is
+    flat, as in the JAX package."""
+    mode, storage = opt.index_mode, "dense"
+    ftype = opt.faiss_index_type if mode == "faiss" else None
+    if ftype not in (None, "flat"):
+        if ftype not in FAISS_STORAGE:
+            raise ValueError(f"unknown faiss_index_type {ftype!r}")
+        mode, storage = "ivf", FAISS_STORAGE[ftype]
+    if mode == "ivf":
+        n_lists, n_probe = opt.ivf_n_lists or None, opt.ivf_n_probe or None
+        if ftype == "pq":  # flat PQ: one list, scanned whole
+            n_lists = n_probe = 1
+        idx = ShardedIVFIndex(n_passages, dim, opt.index_dtype,
+                              device=device, n_lists=n_lists,
+                              n_probe=n_probe, storage=storage,
+                              code_size=opt.faiss_code_size,
+                              refine=opt.ivf_refine)
+    else:
+        idx = ShardedFlatIndex(n_passages, dim, dtype=opt.index_dtype,
+                               device=device, int8r_refine=opt.int8r_refine)
     idx.refine_r = opt.refine_r
     return idx
 
@@ -32,16 +50,19 @@ def build_index_for(opt, n_passages: int, dim: int, device="cuda"):
 def load_index(path: str, device="cuda", method: str = "auto",
                expected_dim: int | None = None, refine_r: int | None = None,
                int8r_refine: str = "rows"):
-    """Load a saved index. ``expected_dim`` validates against the live
-    retriever's hidden size; ``refine_r`` overrides the rescore-pool width
-    so a loaded index searches with the same pool as a freshly built one."""
+    """Load a saved index, dispatching on its meta ``kind`` (flat / ivf).
+    ``expected_dim`` validates against the live retriever's hidden size;
+    ``refine_r`` overrides the rescore-pool width so a loaded index searches
+    with the same pool as a freshly built one."""
     with open(os.path.join(path, "meta.json")) as f:
         kind = json.load(f).get("kind", "flat")
-    if kind != "flat":
-        raise NotImplementedError(
-            f"{kind} index at {path}: IVF is ROADMAP queue A item 14")
-    index = ShardedFlatIndex.load(path, device=device, method=method,
-                                  int8r_refine=int8r_refine)
+    if kind == "ivf":
+        index = ShardedIVFIndex.load(path, device=device)
+    elif kind == "flat":
+        index = ShardedFlatIndex.load(path, device=device, method=method,
+                                      int8r_refine=int8r_refine)
+    else:
+        raise ValueError(f"unknown index kind {kind!r} at {path}")
     if refine_r is not None:
         index.refine_r = refine_r
     if expected_dim is not None and index.dim != expected_dim:

@@ -54,7 +54,7 @@ from ..device import resolve_device
 from ..ops.mips import mips_topk_t
 from ..ops.mips_topt import (hybrid_int8_from_f16, mips_topk_int8_t,
                              quantize_int8, quantize_int8_residual)
-from ._npio import np_load, np_save
+from ._npio import np_load, np_save, to_host
 
 DENSE = {"float16": torch.float16, "bfloat16": torch.bfloat16,
          "float32": torch.float32}
@@ -261,13 +261,7 @@ class ShardedFlatIndex:
             arrays["res"] = self.res[:n]
             arrays["res_scales"] = self.res_scales[0, :n].reshape(n, 1)
         for name, arr in arrays.items():
-            host = arr.cpu()
-            if host.dtype == torch.bfloat16:
-                host = host.view(torch.int16).numpy().view(np.uint16)
-            elif host.dtype == torch.float16:
-                host = host.view(torch.int16).numpy()
-            else:
-                host = host.numpy()
+            host = to_host(arr)
             for i, r in enumerate(np.array_split(host, n_files, axis=0)):
                 np_save(os.path.join(path, f"{name}.{i}.npy"), r)
         meta = {
@@ -294,8 +288,8 @@ class ShardedFlatIndex:
             meta = json.load(f)
         kind = meta.get("kind", "flat")
         if kind != "flat":
-            raise NotImplementedError(
-                f"{kind} index at {path}: IVF is ROADMAP queue A item 14")
+            raise ValueError(f"{path} holds a {kind} index, not a flat one: "
+                             "load it with index.load_index")
         if meta.get("store_int8r"):
             name = "int8r"
         elif meta.get("store_hybrid"):

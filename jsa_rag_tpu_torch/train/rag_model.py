@@ -33,6 +33,7 @@ from ..data.prompts import (PromptConfig, build_generation_batch,
                             build_training_batch, global_max_len)
 from ..device import resolve_device
 from ..index.build import build_index as _build_index, make_encode_fn
+from ..index.flat import ShardedFlatIndex
 from ..models.lm import (LMConfig, beam_generate, greedy_generate,
                          lm_loss, lm_sequence_logprob)
 from ..models.lora import LoRAConfig
@@ -283,9 +284,12 @@ class RAGModel:
         """Prior + posterior retrieval: both query towers embed, then ONE
         search over the concatenated 2B queries (``rag_model.py:198-262``).
         Returns (prior ids, post ids, prior passages, post passages). Under
-        ``retrieve_with_rerank``: two ``retrieve`` calls, posterior first
-        (``rag_model.py:206-218``)."""
-        if self.opt.retrieve_with_rerank:
+        ``retrieve_with_rerank``, or over an index that is not flat: two
+        ``retrieve`` calls, posterior first (``rag_model.py:206-218``). An
+        IVF search scores the union of the lists its batch probes, so one
+        search of the 2B queries would return other ids than two of B."""
+        if (self.opt.retrieve_with_rerank
+                or not isinstance(index, ShardedFlatIndex)):
             post_ids, _, post_passages = self.retrieve(
                 index, params, post_queries, topk, posterior=True,
                 iter_stats=iter_stats)

@@ -144,8 +144,12 @@ def test_int8r_recall_on_the_bench_corpus_matches_jax(refine):
 
 
 def test_bench_refuses_approx_and_cuda_without_a_card():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
-        bench.main([*TINY, "--method", "approx"])
+    """``approx`` runs now (the exact per-chunk top-k that ships as the JAX
+    bench's method, recall 1 against the f32 oracle over the bf16 rows'
+    originals at this size); an unknown method and a card that is not
+    there still refuse."""
+    res = bench.main([*TINY, "--method", "approx"])
+    assert res["method"] == "approx" and res["recall@100"] >= 0.99
     with pytest.raises(ValueError, match="unknown bench method"):
         bench.main([*TINY, "--method", "int4t"])
     if not torch.cuda.is_available():

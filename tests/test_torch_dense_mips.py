@@ -169,8 +169,8 @@ def test_auto_dispatch_rule():
     crossover against the exact scan), exact otherwise (the JAX package's
     rule, ``mips.py:253-255``, sets its own threshold for a TPU); on the CPU
     the plain scan never runs under auto, and ``pallas2`` runs it; fp16
-    rows take the exact scan under auto on the CPU; ``approx`` still
-    raises."""
+    rows take the exact scan under auto on the CPU; ``approx`` returns the
+    exact scan's ids (its per-chunk selection is exact off the TPU)."""
     assert tmips.AUTO_FUSED_MIN_ROWS == 16384
     assert tmips.auto_method("cuda", 16384) == "pallas2"
     assert tmips.auto_method("cuda", 65536) == "pallas2"
@@ -210,10 +210,11 @@ def test_auto_dispatch_rule():
         assert calls and i[:, 0].tolist() == [0, 1]
     finally:
         tp2.scan_topt_f16h_plain = real16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmips.mips_topk_t(q, e, 3, method="approx")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmips.mips_topk_t(q, e.half(), 3, method="approx")
+    for rows in (e, e.half()):
+        calls.clear()
+        _, want = tmips.mips_topk_t(q, rows, 3, method="exact")
+        _, got = tmips.mips_topk_t(q, rows, 3, method="approx", chunk=4096)
+        assert torch.equal(got, want) and not calls
 
 
 def test_dense_wrapper_refuses_what_it_cannot_take():

@@ -153,10 +153,11 @@ def test_embeddings_as_float_matches(mesh1):
 
 
 def test_unported_modes_raise(mesh1, tmp_path):
-    """Index kinds not ported yet name the ROADMAP item instead of running
-    something else (IVF, built or loaded); an unknown strategy or dtype is
-    an error. float16, which raised here until its kernels were ported,
-    now loads from a JAX save."""
+    """An unknown strategy or dtype is an error. float16, which raised here
+    until its kernels were ported, now loads from a JAX save; so does IVF,
+    built or loaded, which raised until it was ported: ``load_index``
+    dispatches an IVF directory to ``ShardedIVFIndex``, and the flat
+    loader refuses one, naming ``load_index``."""
     with pytest.raises(ValueError, match="rows1"):
         TorchIndex(10, 8, device="cpu", int8r_refine="row")
     with pytest.raises(ValueError, match="index dtype"):
@@ -171,8 +172,16 @@ def test_unported_modes_raise(mesh1, tmp_path):
     meta["kind"] = "ivf"
     with open(tmp_path / "f16" / "meta.json", "w") as f:
         json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_index(str(tmp_path / "f16"), device="cpu")
+    with pytest.raises(ValueError, match="load_index"):
+        TorchIndex.load(str(tmp_path / "f16"), device="cpu")
+    from jsa_rag_tpu.index.ivf import ShardedIVFIndex as JaxIVF
+    from jsa_rag_tpu_torch.index.ivf import ShardedIVFIndex as TorchIVF
+
+    jivf = JaxIVF(mesh1, 40, 8, dtype=jnp.float32, n_lists=4, n_probe=4)
+    jivf.train(jnp.asarray(_unit_rows(40, 8)), iters=3)
+    jivf.save(str(tmp_path / "ivf"), n_files=2)
+    assert isinstance(load_index(str(tmp_path / "ivf"), device="cpu"),
+                      TorchIVF)
 
     class Opt:
         index_mode, faiss_index_type, index_dtype = "flat", "ivfpq", "int8r"
@@ -181,5 +190,8 @@ def test_unported_modes_raise(mesh1, tmp_path):
     idx = build_index_for(Opt, 50, 8, device="cpu")
     assert idx.refine_r == 6 and idx.device == torch.device("cpu")
     Opt.index_mode = "ivf"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_index_for(Opt, 50, 8, device="cpu")
+    Opt.ivf_n_lists, Opt.ivf_n_probe, Opt.ivf_refine = 0, 0, False
+    Opt.faiss_code_size = 8
+    ivf = build_index_for(Opt, 50, 8, device="cpu")
+    assert isinstance(ivf, TorchIVF) and ivf.storage == "sq8"
+    assert ivf.refine and ivf.refine_r == 6

@@ -315,8 +315,8 @@ def test_mips_topk_dispatch_rules():
     """Which wrapper each method reaches on the CPU: fp16 rows take B7's
     plain version under auto/pallas/pallas2 and the f32 scan under exact;
     bf16/f32 rows take B9's under pallas, B6's under pallas2 and the exact
-    scan under auto; approx raises naming the ROADMAP item; int16 bits are
-    refused."""
+    scan under auto; approx (no kernel) returns the exact scan's ids; int16
+    bits are refused."""
     e = torch.from_numpy(_unit_rows(300, 16, seed=2))
     q = e[:3].clone()
     spies = {}
@@ -352,8 +352,10 @@ def test_mips_topk_dispatch_rules():
             setattr(tp2, n, real[n])
         tstream.mips_topk_stream_plain = real_stream
     for rows in (e, e.half()):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-            tmips.mips_topk(q, rows, 3, method="approx")
+        spies.clear()
+        _, want = tmips.mips_topk(q, rows, 3, method="exact")
+        _, got = tmips.mips_topk(q, rows, 3, method="approx", chunk=64)
+        assert torch.equal(got, want) and not spies
     with pytest.raises(TypeError, match="int16"):
         tmips.mips_topk(q, e.half().view(torch.int16), 3)
     with pytest.raises(ValueError, match="unknown"):
