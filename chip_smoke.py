@@ -3,9 +3,10 @@
 the evaluate path, the jsa, rag, vrag and concat training paths, the MIPS
 benches, training and evaluation from HF checkpoint directories at full
 width, the repo's eval recipe (beam search) with the multiple-choice and
-mlm tasks, the IVF indexes (training, evaluate and serve through ivfpq)
-and the Atlas index interop, every kernel of those paths against its plain
-PyTorch version.
+mlm tasks, the IVF indexes (training, evaluate and serve through ivfpq),
+the Atlas index interop, and several processes (a one-rank NCCL group,
+two ranks sharing the card over gloo), every kernel of those paths against
+its plain PyTorch version.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -82,8 +83,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     ``python -m jsa_rag_tpu_torch.train``'s ``main`` with the flagship NQ
     jsa options (``egs/NaturalQuestions/jsa/run.sh``; bge-large towers, the
     ~1B generator with LoRA, bf16, f32 params) and ``--load_index_path``,
-    cut for time to 8 steps (flagship 20,000) with 2 warmup steps (1,000),
-    ``--save_freq 8 --log_freq 1 --log_detail_num 2`` and no eval: B2's
+    cut for time to 3 steps (flagship 20,000) with 2 warmup steps (1,000),
+    ``--save_freq 3 --log_freq 1 --log_detail_num 2`` and no eval: B2's
     launches during ``main``, recall@10 of main's own searches against the
     exact f32 oracle, B2 against its plain version on main's first scan,
     every step's loss, generator loss and accept rate, each step's wall
@@ -110,7 +111,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     first 16,384 rows from the initial passage tower, the rest clustered;
     the f32 rows kept for the oracle) saved, then ``main`` with the
     flagship options but ``--gold_score_mode rag --index_dtype float16
-    --refine_r 4 --load_index_path``, 8 steps: B4's launches, recall@10 of
+    --refine_r 4 --load_index_path``, 3 steps: B4's launches, recall@10 of
     main's searches against exact f32, B4 against its plain version on
     main's first scan, every step's losses, wall split and device time,
     peak memory; the checkpoint: generator base bit-identical, every
@@ -264,7 +265,41 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     bge-large geometry returning the towers' own arrays; the bytes and
     seconds of each step. The records of phases 23-25 are one JSON line
     of their own (they run no kernel), and every check of theirs is
-    logged again, one a line, before the last three lines.
+    logged again, one a line, before the last three lines;
+26. (run after phase 18, while phase 11's saved index is still on disk)
+    phase 11's jsa run again through ``python -m jsa_rag_tpu_torch.train``'s
+    ``main`` under ``torchrun``'s environment contract with one rank
+    (``RANK`` 0, ``WORLD_SIZE`` 1, ``LOCAL_RANK`` 0, ``MASTER_ADDR`` /
+    ``MASTER_PORT`` on localhost): the NCCL group, the DDP gradient
+    all-reduce (its buckets and ms a step logged) and the rank-averaged
+    loss; every step's losses and the final params' digest (each leaf's
+    bits summed and squared-summed) must equal phase 11's bit for bit, and
+    B2 must have launched;
+27. (run next, while phase 8's saved bf16 index is still on disk) two
+    ranks sharing the card over gloo (NCCL refuses two ranks on one
+    device), started with ``torchrun``'s contract by
+    ``parallel/dryrun.py::launch``: (i) an int8r index of 1,300,000 x 1024
+    (``pair_rows``: clustered rows, a seed each 65,536-row chunk) sharded
+    in two (651,264 rows a shard, B1 on each, held to its plain version on
+    the rank's first scan), ragged batches of 3 / 5 and 64 / 61 queries
+    (perturbed rows) at k = 100: gold top-1, recall@100 against the exact
+    f32 oracle no lower than the one-process index's on the same queries
+    minus 0.002, B1's launches per rank, the search's and the merge's ms;
+    (ii) ``evaluate``'s ``main`` over phase 8's index (each rank loads its
+    rows) and the first 17 of its questions (rank 1 two batches, rank 0
+    one and a dummy): every question once in rank 0's merged file, each
+    sharded search's ids equal to the one-process index's (phase 8's
+    files, loaded whole) on the same query embeddings, each prediction
+    that differs from phase 8's held to a cache-free forward
+    (``check_greedy_rows``), B3 held to its plain version; (iii) two rag steps (dropout off, no
+    draws, the linear schedule so step 1 already updates) with the
+    generator cut to ``PAIR_GEN_LAYERS`` of its 16 layers, widths
+    unchanged, both remat flags, one question a rank: the replicas
+    bit-equal after each step and each step's loss within
+    ``PAIR_LOSS_RTOL`` of one process at batch 2 over the same two
+    questions and the passages the ranks retrieved (replayed: random
+    towers embed every text alike, so a query embedded in another batch
+    can swap near-tied passages).
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, the ``kernels`` JSON object (B1-B9) and
@@ -341,7 +376,7 @@ FLAGSHIP = ["--task", "qa", "--qa_prompt_format", "{question}",
 INT8_CORE = ("CUDA sm_90a, topt_int8r2.cu on the int8 wgmma core "
              "(wgmma_scan.cuh: TMA ring, wgmma m64n256k32 s8, persistent "
              "blocks)")
-TRAIN_STEPS = 8  # flagship 20,000
+TRAIN_STEPS = 3  # flagship 20,000
 MODE_STEPS = 4   # the vrag and concat cells
 # greedy decode at bf16 against a cache-free forward: the two run the same
 # bf16 layers on different matmul shapes, so activations round differently;
@@ -1262,6 +1297,15 @@ def eval_phase(torch, mt, g, dev, work) -> dict:
         f"forward: {exact}/{steps} steps the exact argmax (the rest within "
         f"{GREEDY_TOL} nats), log-probs within {worst:.4f}")
     del decodes
+    # phase 27 evaluates on this index over two ranks, against these rows
+    with open(os.path.join(work, "ck", "eval-full",
+                           "questions.jsonl.jsonl")) as f:
+        preds = {row["query"]: [row["generation"],
+                                [p["id"] for p in row["passages"]]]
+                 for row in map(json.loads, f)}
+    pair_inputs = {"argv": argv, "questions": questions,
+                   "passages": passages, "predictions": preds,
+                   "index": os.path.join(work, "index_bf16")}
 
     # ------------------------------------------------------------- 9 times
     log("[9] B3 on the served bf16 index: against its plain version at "
@@ -1317,6 +1361,7 @@ def eval_phase(torch, mt, g, dev, work) -> dict:
         "eval_batch_s": times.seconds,
         "eval_stages_s": stages,
         "greedy_exact_steps": [exact, steps],
+        "pair_inputs": pair_inputs,
     }
 
 
@@ -1459,6 +1504,7 @@ def timed_train_main(torch, argv, counter, record, parts) -> dict:
             stop.record()
             step_events.append((start, stop))
             return out
+        timed.reducer = step_fn.reducer
         return timed
 
     loop.make_train_step = timed_make
@@ -1597,8 +1643,9 @@ def train_phase(torch, mt, g, dev, work) -> dict:
              (modes, "_per_row_ce", "generator CE"),
              (torch.autograd, "grad", "backward"),
              (AdamW, "step", "optimizer")]
-    run11 = timed_train_main(torch, argv, mt.scan_topt_int8,
-                             (flat, "mips_topk_int8_t"), parts)
+    with final_params_digest(torch) as dig11:
+        run11 = timed_train_main(torch, argv, mt.scan_topt_int8,
+                                 (flat, "mips_topk_int8_t"), parts)
     final_step, launches, searches = (run11["final_step"], run11["launches"],
                                       run11["calls"])
     main_s, peak, total, retries = (run11["main_s"], run11["peak"],
@@ -1614,6 +1661,12 @@ def train_phase(torch, mt, g, dev, work) -> dict:
     steps = step_records(run11, metrics, ("loss/train_loss",
                                           "loss/generator_loss",
                                           "accept_rate"), TRAIN_STEPS)
+    # what phase 26 holds its one-rank NCCL run to
+    nccl_reference = {"argv": argv, "digest": dig11["digest"],
+                      "losses": [[m[k] for k in ("loss/train_loss",
+                                                 "loss/generator_loss",
+                                                 "accept_rate")]
+                                 for m in metrics]}
 
     # main's own searches: recall@10 against exact f32 over the original
     # rows, and B2 against its plain version on the first scan's inputs
@@ -1776,6 +1829,7 @@ def train_phase(torch, mt, g, dev, work) -> dict:
         "card_memory_bytes": total,
         "checkpoint": inv,
         "refresh": refresh,
+        "nccl_reference": nccl_reference,
     }
 
 
@@ -4115,6 +4169,604 @@ def atlas_phase(torch, mt, dev) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phases 26-27
+PAIR_CHUNK = 65_536      # phase 27's corpus: one seed a chunk of rows
+PAIR_GEN_LAYERS = 8      # phase 27's rag generator depth, of 16 (widths kept)
+PAIR_RECALL_SLACK = 0.002
+# two rag steps on two ranks against one process at twice the batch: the
+# same rows in bf16 compute (8 mantissa bits, 3.9e-3 a rounding) through
+# other matmul shapes, then one Adam step of lr 2e-5; the loss agrees to
+PAIR_LOSS_RTOL = 1e-2
+PAIR_TIMEOUT_S = 600
+
+
+def param_digest(torch, params) -> list:
+    """[int64 sum, int64 sum of squares] of every leaf's bits, in path
+    order: equal digests are bit-equal trees (up to a collision)."""
+    from jsa_rag_tpu_torch.train.optim import named_leaves
+
+    out = []
+    for _, t in sorted(named_leaves(params).items()):
+        bits = t.detach().contiguous().view(
+            {2: torch.int16, 4: torch.int32}[t.element_size()]).to(
+                torch.int64)
+        out.append([int(bits.sum()), int((bits * bits).sum())])
+    return out
+
+
+@contextlib.contextmanager
+def final_params_digest(torch):
+    """Wrap the train entry point's ``train``: once it returns, the
+    digest of the params it trained lands in the yielded dict."""
+    from jsa_rag_tpu_torch.train import __main__ as train_cli
+
+    real = train_cli.train
+    out = {}
+
+    def wrapper(model, index, params, tx, opt, **kw):
+        step = real(model, index, params, tx, opt, **kw)
+        out["digest"] = param_digest(torch, params)
+        return step
+
+    train_cli.train = wrapper
+    try:
+        yield out
+    finally:
+        train_cli.train = real
+
+
+@contextlib.contextmanager
+def torchrun_env(world: int, rank: int, port: int):
+    """``torchrun``'s environment contract for this process; the group it
+    leads to is left and the environment restored on exit."""
+    from jsa_rag_tpu_torch.parallel import mesh
+
+    env = {"RANK": str(rank), "WORLD_SIZE": str(world),
+           "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        mesh.shutdown_processes()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def metric_lines(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def nccl_phase(torch, mt, work, ref: dict) -> dict:
+    """Phase 26: phase 11's run again under ``torchrun``'s contract, world
+    1, NCCL; -> its records. Fails unless every step's losses and the final
+    params' digest equal phase 11's bit for bit."""
+    import torch.distributed as dist
+
+    from jsa_rag_tpu_torch.index import flat
+    from jsa_rag_tpu_torch.parallel import dryrun
+
+    log("[26] phase 11's jsa run under torchrun's contract (RANK 0, "
+        "WORLD_SIZE 1, LOCAL_RANK 0; --device cuda is cuda:0): the NCCL "
+        "group, the DDP gradient all-reduce, against phase 11's run without "
+        "a group")
+    argv = [a for a in ref["argv"]]
+    argv[argv.index("--save_freq") + 1] = "1000000"  # no checkpoint
+    argv[argv.index("--name") + 1] = "train-nccl"
+    t0 = time.perf_counter()
+    with torchrun_env(1, 0, dryrun.free_port()):
+        with final_params_digest(torch) as dig:
+            run = timed_train_main(torch, argv, mt.scan_topt_int8,
+                                   (flat, "mips_topk_int8_t"), [])
+        backend = dist.get_backend()
+    main_s = time.perf_counter() - t0
+    metrics = metric_lines(os.path.join(work, "ck", "train-nccl",
+                                        "metrics.jsonl"))
+    keys = ("loss/train_loss", "loss/generator_loss", "accept_rate")
+    losses = [[m[k] for k in keys] for m in metrics]
+    ar_ms = [m["parallel/allreduce_ms"] for m in metrics]
+    buckets = [int(m["parallel/allreduce_buckets"]) for m in metrics]
+    log(f"  backend {backend}; train main {main_s:.1f} s, "
+        f"{run['final_step']} steps, B2 launches {run['launches']}; "
+        f"all-reduce a step: {buckets[0]} buckets of <= 256 MiB, "
+        + ", ".join(f"{x:.1f}" for x in ar_ms) + " ms; device ms a step "
+        + ", ".join(f"{x:.1f}" for x in run["device_ms"]))
+    same_losses = losses == ref["losses"]
+    same_params = dig["digest"] == ref["digest"]
+    log(f"  per-step (train, generator loss, accept rate) bit-equal to "
+        f"phase 11's: {same_losses} ({losses}); final params' digest over "
+        f"{len(ref['digest'])} leaves bit-equal: {same_params}")
+    if backend != "nccl" or run["launches"] < 1:
+        raise AssertionError(f"backend {backend}, B2 launches "
+                             f"{run['launches']}")
+    if not (same_losses and same_params):
+        raise AssertionError("the one-rank NCCL run differs from the run "
+                             f"without a group: losses {losses} vs "
+                             f"{ref['losses']}")
+    shutil.rmtree(os.path.join(work, "ck"), ignore_errors=True)
+    return {"backend": backend, "launches": run["launches"],
+            "main_s": main_s, "losses": losses, "allreduce_ms": ar_ms,
+            "allreduce_buckets": buckets, "device_ms": run["device_ms"],
+            "bit_equal": True}
+
+
+def pair_rows(torch, lo: int, hi: int, dev):
+    """Rows [lo, hi) of phase 27's corpus: clustered unit rows as
+    ``fill_clustered`` makes them, each ``PAIR_CHUNK`` rows from a seed of
+    their own, so every process makes the same rows for any range."""
+    w = (torch.arange(DIM, dtype=torch.float32, device=dev) + 1.0) ** -0.5
+    g = torch.Generator(device=dev).manual_seed(SEED + 27)
+    centers = torch.randn((4096, DIM), generator=g, device=dev) * w
+    centers /= centers.norm(dim=1, keepdim=True)
+    out = torch.empty((hi - lo, DIM), dtype=torch.float32, device=dev)
+    for c in range(lo // PAIR_CHUNK, -(-hi // PAIR_CHUNK)):
+        a, b = c * PAIR_CHUNK, min((c + 1) * PAIR_CHUNK, N_INDEX)
+        g = torch.Generator(device=dev).manual_seed(SEED * 1000 + 27_000 + c)
+        rows = clustered_rows(torch, g, b - a, DIM, centers, w)
+        s, t = max(lo, a), min(hi, b)
+        out[s - lo:t - lo] = rows[s - a:t - a]
+    return out
+
+
+PAIR_BATCHES = ((3, 5), (64, 61))  # rank 0's and rank 1's query rows
+
+
+def pair_phase(torch, mt, dev, work, p8: dict) -> dict:
+    """Phase 27: two ranks share cuda:0 over gloo (NCCL refuses two ranks
+    on one device); -> the records, B1's and B3's launches and errors."""
+    import numpy as np
+
+    from jsa_rag_tpu_torch import model_io
+    from jsa_rag_tpu_torch.index.flat import ShardedFlatIndex
+    from jsa_rag_tpu_torch.ops.mips import mips_topk_exact
+    from jsa_rag_tpu_torch.parallel import dryrun
+
+    log(f"[27] two ranks sharing {torch.cuda.get_device_name(0)} over gloo: "
+        f"an int8r index of {N_INDEX} x {DIM} sharded (B1 on each shard), "
+        f"evaluate on phase 8's bf16 index (B3), two rag steps")
+    pair = os.path.join(work, "pair")
+    os.makedirs(pair, exist_ok=True)
+    t0 = time.perf_counter()
+    # (i) the one-process index and the exact oracle on the same rows
+    n_q = sum(sum(b) for b in PAIR_BATCHES)
+    cpu = torch.Generator().manual_seed(SEED + 270)
+    gold = torch.randint(0, N_INDEX, (n_q,), generator=cpu)
+    noise = 0.01 * torch.randn((n_q, DIM), generator=cpu)
+    q = torch.stack([pair_rows(torch, int(i), int(i) + 1, dev)[0]
+                     for i in gold]) + noise.to(dev)
+    one = ShardedFlatIndex(N_INDEX, DIM, "int8r", device=dev)
+    e32 = torch.empty((N_INDEX, DIM), dtype=torch.float32, device=dev)
+    for s in range(0, N_INDEX, PAIR_CHUNK):
+        e32[s:s + PAIR_CHUNK] = pair_rows(torch, s,
+                                          min(s + PAIR_CHUNK, N_INDEX), dev)
+        one.set_embeddings(s, e32[s:s + PAIR_CHUNK])
+    _, ids_one = one.search(q, TOPK)
+    _, oracle = mips_topk_exact(q, e32, TOPK)
+    recall_one = [_recall(ids_one[a:b], oracle[a:b])
+                  for a, b in _pair_spans()]
+    torch.save({"q": q.cpu(), "gold": gold, "oracle": oracle.cpu()},
+               os.path.join(pair, "ref.pt"))
+    del one, e32, ids_one
+    torch.cuda.empty_cache()
+    log(f"  the one-process int8r index on the same rows: recall@100 "
+        + ", ".join(f"{r:.4f}" for r in recall_one) + " (batches "
+        + ", ".join(f"{a}+{b}" for a, b in PAIR_BATCHES) + f"); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (ii) evaluate: the first 17 of phase 8's 32 questions, so rank 1
+    # (every even question) has two batches of 8 and rank 0 one and a dummy
+    with open(p8["questions"]) as f:
+        lines = f.readlines()[:17]
+    q17 = os.path.join(pair, "questions17.jsonl")
+    with open(q17, "w") as f:
+        f.writelines(lines)
+    eval_argv = [a for a in p8["argv"]]
+    for flag, value in (("--eval_data", q17), ("--name", "eval-pair"),
+                        ("--checkpoint_dir", os.path.join(pair, "ck")),
+                        ("--device", str(dev))):
+        eval_argv[eval_argv.index(flag) + 1] = value
+    with open(os.path.join(pair, "p8.json"), "w") as f:
+        json.dump(p8["predictions"], f)
+
+    # (iii) rag: two questions, one a rank, against one process with both
+    with open(p8["questions"]) as f:
+        two = f.readlines()[:2]
+    train2 = os.path.join(pair, "train2.jsonl")
+    with open(train2, "w") as f:
+        f.writelines(two)
+    rag_argv = FLAGSHIP + [
+        "--gold_score_mode", "rag", "--dropout", "0",
+        "--use_gradient_checkpoint_retriever", "true",
+        "--use_gradient_checkpoint_generator", "true",
+        "--index_dtype", "bfloat16", "--load_index_path", p8["index"],
+        "--passages", p8["passages"], "--train_data", train2,
+        "--checkpoint_dir", os.path.join(pair, "ck"), "--warmup_steps", "0",
+        # cosine's first update has lr 0: linear's moves the weights at step
+        # 1, so step 2's loss is the updated replicas'
+        "--scheduler", "linear",
+        "--total_steps", "2", "--save_freq", "1000000", "--log_freq", "1",
+        "--eval_freq", "1000000", "--refresh_index", "0-40000:40000"]
+    one_argv = [a for a in rag_argv]
+    one_argv[one_argv.index("--per_gpu_batch_size") + 1] = "2"
+    layers = model_io.LM_PRESETS["large"]["layers"]
+    log(f"  rag cut: the generator at {PAIR_GEN_LAYERS} of its {layers} "
+        f"layers (widths as the preset), both towers and the generator "
+        f"recomputed in the backward (the flagship's remat flags), so two "
+        f"ranks' models, optimizer states and steps share the card")
+    # the rag runs read one frozen vocabulary, as an HF tokenizer is: the
+    # SimpleTokenizer numbers a word when it first meets it, and two ranks
+    # meet different words first (other token ids, another loss)
+    from jsa_rag_tpu_torch.data.tokenizer import SimpleTokenizer
+
+    vocab_tok = SimpleTokenizer(max_vocab=32000)
+    with open(p8["passages"]) as f:
+        for _, line in zip(range(N_TEXT), f):
+            row = json.loads(line)
+            vocab_tok.tokenize(f"{row['title']} {row['text']}")
+    for line in two:
+        row = json.loads(line)
+        vocab_tok.tokenize(" ".join([row["question"], *row["answers"]]))
+    with open(os.path.join(pair, "vocab.json"), "w") as f:
+        json.dump(vocab_tok.vocab, f)
+    cfg = {"pair": pair, "device": str(dev), "eval_argv": eval_argv,
+           "rag_argv": rag_argv + ["--device", str(dev), "--name",
+                                   "rag-pair"],
+           # the sizes this process runs at, for the ranks' own copy
+           "sizes": {k: globals()[k] for k in ("N_INDEX", "DIM", "TOPK",
+                                               "PAIR_CHUNK",
+                                               "PAIR_GEN_LAYERS")}}
+    with open(os.path.join(pair, "cfg.json"), "w") as f:
+        json.dump(cfg, f)
+
+    t1 = time.perf_counter()
+    code = ("import sys\nimport chip_smoke\n"
+            "chip_smoke.pair_worker(sys.argv[1])\n")
+    results = dryrun.launch(code, 2, PAIR_TIMEOUT_S,
+                            args=(os.path.join(pair, "cfg.json"),))
+    for r, res in enumerate(results):
+        for line in res.stdout.splitlines():
+            log(f"  rank {r}: {line}")
+        if res.returncode != 0:
+            raise AssertionError(f"rank {r} exited {res.returncode}: "
+                                 f"{res.stderr[-3000:]}")
+    pair_s = time.perf_counter() - t1
+    got = []
+    for r in (0, 1):
+        with open(os.path.join(pair, f"rank{r}.json")) as f:
+            got.append(json.load(f))
+
+    # the one-process references: phase 8's index searched with the query
+    # embeddings each rank searched (the sharded search must return the
+    # same ids), and the rag steps at batch 2 over the passages the ranks
+    # retrieved (random towers embed every text alike, so a query embedded
+    # in another batch can swap near-tied passages)
+    whole = ShardedFlatIndex.load(p8["index"], device=dev)
+    same = total = 0
+    for r in (0, 1):
+        for q_emb, ids in torch.load(os.path.join(pair, f"eval{r}.pt")):
+            _, want = whole.search(q_emb.to(dev), ids.shape[1])
+            same += int((want.cpu() == ids).all(dim=1).sum())
+            total += ids.shape[0]
+    del whole
+    torch.cuda.empty_cache()
+    got[0]["eval"]["search_rows_equal"] = [same, total]
+    replay = {}
+    for r in (0, 1):
+        with open(os.path.join(pair, f"retrieved{r}.json")) as f:
+            for step, rows in enumerate(json.load(f)):
+                replay.update({(step, q): ids for q, ids in rows.items()})
+    from jsa_rag_tpu_torch.train import __main__ as train_cli
+    from jsa_rag_tpu_torch.train.rag_model import RAGModel
+
+    calls = []
+    real_retrieve = RAGModel.retrieve
+
+    def replayed(self, index, params, queries, topk, **kw):
+        step = len(calls)
+        calls.append(queries)
+        ids = np.asarray([replay[(step, q)] for q in queries], np.int64)
+        return ids, np.zeros(ids.shape, np.float32), self.passage_texts(ids)
+
+    RAGModel.retrieve = replayed
+    try:
+        with rag_pair_setup(os.path.join(pair, "vocab.json")):
+            train_cli.main(one_argv + ["--device", str(dev), "--name",
+                                       "rag-one"])
+    finally:
+        RAGModel.retrieve = real_retrieve
+    one_losses = [m["loss/train_loss"] for m in metric_lines(
+        os.path.join(pair, "ck", "rag-one", "metrics.jsonl"))]
+    torch.cuda.empty_cache()
+    check_launches("B1 on each rank's int8r shard",
+                   [g_["b1_launches"] for g_ in got])
+    check_launches("B3 in each rank's evaluate",
+                   [g_["eval"]["b3_launches"] for g_ in got])
+    check_launches("B3 in each rank's rag steps",
+                   [g_["rag"]["b3_launches"] for g_ in got])
+
+    # (i) the sharded index: gold top-1 and recall against the oracle
+    ids = [torch.load(os.path.join(pair, f"ids{r}.pt")) for r in (0, 1)]
+    oracle = torch.load(os.path.join(pair, "ref.pt"))["oracle"]
+    index_rec = []
+    for n, (a, b) in enumerate(_pair_spans()):
+        sharded = torch.cat([ids[0][n], ids[1][n]])
+        top1 = bool((sharded[:, 0] == gold[a:b]).all())
+        rec = _recall(sharded, oracle[a:b])
+        index_rec.append({"rows": list(PAIR_BATCHES[n]), "recall_at_100":
+                          rec, "one_process": recall_one[n],
+                          "gold_top1": top1})
+        log(f"  index batches {PAIR_BATCHES[n][0]}+{PAIR_BATCHES[n][1]}: "
+            f"recall@100 {rec:.4f} (one process {recall_one[n]:.4f}), gold "
+            f"top-1 {top1}")
+        if not top1 or rec < recall_one[n] - PAIR_RECALL_SLACK:
+            raise AssertionError(f"two-rank index: top-1 {top1}, recall "
+                                 f"{rec:.4f} vs {recall_one[n]:.4f}")
+    for r, g_ in enumerate(got):
+        log(f"  rank {r}: B1 launches {g_['b1_launches']}, search ms "
+            + ", ".join(f"{x:.3f}" for x in g_["search_ms"]) + ", of it "
+            "the merge ms " + ", ".join(f"{x:.3f}" for x in g_["merge_ms"]))
+    # (ii) evaluate and (iii) rag
+    ev = got[0]["eval"]
+    log(f"  evaluate: merged file {ev['rows']} rows, {ev['unique']} "
+        f"questions (of 17); the sharded searches' ids equal the one-process "
+        f"index's on the same query embeddings in {same} of {total} rows; "
+        f"questions whose passages equal phase 8's {ev['ids_as_phase8']} "
+        f"(its batches embed each query beside other queries, in bf16); "
+        f"predictions differing from phase 8's {ev['differ']}, each checked "
+        f"against a cache-free forward on its rank "
+        f"({got[0]['eval']['checked'] + got[1]['eval']['checked']} rows)")
+    if ev["rows"] != 17 or ev["unique"] != 17 or same != total:
+        raise AssertionError(f"two-rank evaluate: {ev}")
+    rag = got[0]["rag"]
+    diffs = [abs(a - b) / max(1.0, abs(b))
+             for a, b in zip(rag["losses"], one_losses)]
+    log(f"  rag: losses {rag['losses']} (one process at batch 2: "
+        f"{one_losses}; max rel diff {max(diffs):.2e}, bound "
+        f"{PAIR_LOSS_RTOL}); replicas bit-equal after each step "
+        f"{rag['replicas_equal']}; all-reduce {rag['buckets']} buckets, ms "
+        + ", ".join(f"{x:.1f}" for x in rag["allreduce_ms"]))
+    if (not all(rag["replicas_equal"]) or len(rag["replicas_equal"]) != 2
+            or max(diffs) > PAIR_LOSS_RTOL):
+        raise AssertionError(f"two-rank rag: {rag}, one process "
+                             f"{one_losses}")
+    log(f"  phase 27: {time.perf_counter() - t0:.1f} s (the two ranks "
+        f"{pair_s:.1f} s)")
+    return {
+        "index": index_rec, "pair_s": pair_s,
+        "b1_launches": [g_["b1_launches"] for g_ in got],
+        "b1_max_abs_err": max(g_["b1_max_abs_err"] for g_ in got),
+        "b3_launches_eval": [g_["eval"]["b3_launches"] for g_ in got],
+        "b3_launches_rag": [g_["rag"]["b3_launches"] for g_ in got],
+        "b3_max_abs_err": max(g_["eval"]["b3_max_abs_err"] for g_ in got),
+        "search_ms": [g_["search_ms"] for g_ in got],
+        "merge_ms": [g_["merge_ms"] for g_ in got],
+        "evaluate": ev, "rag": {**rag, "one_process_losses": one_losses,
+                                "generator_layers": PAIR_GEN_LAYERS}}
+
+
+@contextlib.contextmanager
+def rag_pair_setup(vocab_path: str):
+    """Phase 27's rag runs: the generator at ``PAIR_GEN_LAYERS`` layers
+    and both tokenizers frozen on the vocabulary at ``vocab_path``."""
+    from jsa_rag_tpu_torch import model_io
+    from jsa_rag_tpu_torch.data.tokenizer import SimpleTokenizer
+
+    with open(vocab_path) as f:
+        vocab = json.load(f)
+    layers = model_io.LM_PRESETS["large"]["layers"]
+    real = model_io.load_tokenizer
+    model_io.LM_PRESETS["large"]["layers"] = PAIR_GEN_LAYERS
+    model_io.load_tokenizer = lambda path, max_vocab: SimpleTokenizer(
+        vocab=dict(vocab), max_vocab=max_vocab, frozen=True)
+    try:
+        yield
+    finally:
+        model_io.LM_PRESETS["large"]["layers"] = layers
+        model_io.load_tokenizer = real
+
+
+def check_launches(what: str, counts: list) -> None:
+    """Every rank's path launched its kernel."""
+    if min(counts) < 1:
+        raise AssertionError(f"{what}: launches {counts}")
+
+
+def _pair_spans():
+    """(start, stop) of each ragged batch pair in the query list."""
+    out, s = [], 0
+    for a, b in PAIR_BATCHES:
+        out.append((s, s + a + b))
+        s += a + b
+    return out
+
+
+def _recall(ids, oracle) -> float:
+    k = oracle.shape[1]
+    return float(sum(len(set(a.tolist()) & set(o.tolist())) / k
+                     for a, o in zip(ids, oracle)) / len(ids))
+
+
+def pair_worker(cfg_path: str) -> None:
+    """One rank of phase 27 (run by ``pair_phase`` under ``torchrun``'s
+    environment): the sharded int8r index, evaluate and two rag steps;
+    writes ``rank<r>.json`` (and its search ids) for the parent."""
+    import torch
+
+    from jsa_rag_tpu_torch import evaluate as evaluate_cli
+    from jsa_rag_tpu_torch.index import flat
+    from jsa_rag_tpu_torch.index.flat import ShardedFlatIndex
+    from jsa_rag_tpu_torch.ops import mips
+    from jsa_rag_tpu_torch.ops import mips_topt as mt
+    from jsa_rag_tpu_torch.parallel import mesh
+    from jsa_rag_tpu_torch.train import __main__ as train_cli
+    from jsa_rag_tpu_torch.train import loop, rag_model
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    globals().update(cfg["sizes"])
+    pair = cfg["pair"]
+    # the two ranks share one card: NCCL refuses that, gloo carries it
+    dev = mesh.init_processes(cfg["device"], backend="gloo")
+    from jsa_rag_tpu_torch.device import exact_f32_matmul
+
+    exact_f32_matmul()
+    r = mesh.process_index()
+    if dev.type == "cuda":
+        mt._kernel_libs()  # built by the parent; loaded here
+    else:  # a rehearsal on the CPU at a small size: nothing to wait for
+        torch.cuda.synchronize = lambda *a, **k: None
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def free_cache():  # the other rank allocates on the same card
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    out = {}
+
+    # (i) the int8r index, this rank's shard written in global chunks
+    idx = ShardedFlatIndex(N_INDEX, DIM, "int8r", device=dev)
+    lo, hi = idx.row_offset, idx.row_offset + idx.local_rows
+    for s in range(lo // PAIR_CHUNK * PAIR_CHUNK, hi, PAIR_CHUNK):
+        t = min(s + PAIR_CHUNK, N_INDEX)
+        idx.set_embeddings(s, pair_rows(torch, s, t, dev))
+    log(f"shard rows [{lo}, {hi}) of {idx.shard_rows} allocated")
+    ref = torch.load(os.path.join(pair, "ref.pt"))
+    merge_ms, search_ms, ids = [], [], []
+    real_merge = flat.merge_shards
+
+    def timed_merge(*a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        res = real_merge(*a, **kw)
+        sync()
+        merge_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    with recording(mt, "mips_topk_int8r_t", 1) as scans:
+        mt.scan_topt_int8r2.launches = 0  # main path starts
+        for (a, b), (n0, n1) in zip(_pair_spans(), PAIR_BATCHES):
+            mine = ref["q"][a:b][:n0] if r == 0 else ref["q"][a:b][n0:]
+            mine = mine.to(dev)
+            idx.search(mine, TOPK)  # warm
+            flat.merge_shards = timed_merge
+            try:
+                sync()
+                t0 = time.perf_counter()
+                _, i = idx.search(mine, TOPK)
+                sync()
+                search_ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                flat.merge_shards = real_merge
+            ids.append(i.cpu())
+        out["b1_launches"] = mt.scan_topt_int8r2.launches  # main path ends
+    (q0, emb0, es0, k0), kw0, _ = scans[0]
+    tile0, t0_ = mt.scan_geometry(emb0.shape[0], min(kw0["refine"] * k0,
+                                                     emb0.shape[0]),
+                                  kw0["pool_n"])
+    out["b1_max_abs_err"] = compare_int8r(
+        mt, (*mt.quantize_int8_residual(q0.float()), emb0, es0,
+             kw0["valid_n"], tile0, t0_),
+        f"B1 on this rank's first scan: B={q0.shape[0]} N={emb0.shape[0]} "
+        f"valid={kw0['valid_n']} k={k0} T={t0_}")
+    out["search_ms"], out["merge_ms"] = search_ms, merge_ms
+    torch.save(ids, os.path.join(pair, f"ids{r}.pt"))
+    del idx, scans
+    free_cache()
+
+    # (ii) evaluate over phase 8's bf16 index, sharded
+    with recording(rag_model, "greedy_generate") as decodes, \
+            recording(rag_model.RAGModel, "method_generate") as picks, \
+            recording(ShardedFlatIndex, "search") as searches, \
+            recording(mips, "mips_topk_dense_t", 1) as dense:
+        mt.scan_topt_dense.launches = 0  # main path starts
+        evaluate_cli.main(cfg["eval_argv"])
+        b3_eval = mt.scan_topt_dense.launches  # main path ends
+    torch.save([(args[1].cpu(), out[1].cpu()) for args, _, out in searches],
+               os.path.join(pair, f"eval{r}.pt"))
+    # (a CPU rehearsal's small index takes the exact scan, not B3's)
+    b3_err = (compare_served(mt, dense[0], "B3 on this rank's first scan:")
+              if dense or dev.type == "cuda" else 0.0)
+    with open(os.path.join(pair, "p8.json")) as f:
+        p8 = json.load(f)
+    merged = os.path.join(pair, "ck", "eval-pair", "questions17.jsonl.jsonl")
+    with open(merged) as f:
+        rows = [json.loads(line) for line in f]
+    got = {row["query"]: (row["generation"],
+                          [p["id"] for p in row["passages"]])
+           for row in rows}
+    as_phase8 = sum(got[q][1] == p8[q][1] for q in got)
+    differ = sorted(q for q in got if got[q][0] != p8[q][0])
+    checked = 0
+    for (args, _, _), call in zip(picks, decodes):
+        queries, k = args[2], len(args[3][0])
+        for j, qtext in enumerate(queries):
+            if qtext in differ:
+                (params, gcfg, gids, gmask), kw, (toks, lps) = call
+                sl = slice(j * k, (j + 1) * k)
+                check_greedy_rows(torch, ((params, gcfg, gids[sl],
+                                           gmask[sl]), kw,
+                                          (toks[sl], lps[sl])), rows=k)
+                checked += k
+    out["eval"] = {"rows": len(rows), "unique": len(got),
+                   "ids_as_phase8": as_phase8, "differ": len(differ),
+                   "checked": checked, "b3_launches": b3_eval,
+                   "b3_max_abs_err": b3_err}
+    log(f"evaluate: B3 launches {b3_eval}; {len(differ)} predictions "
+        f"differ from phase 8's, {checked} greedy rows checked")
+    del decodes, picks, dense, searches
+    free_cache()
+
+    # (iii) two rag steps at the cut depth, the replicas compared after
+    # each step
+    equal, real_make = [], loop.make_train_step
+
+    def checked_make(*a, **kw):
+        step_fn = real_make(*a, **kw)
+
+        def step(params, batch, rng):
+            res = step_fn(params, batch, rng)
+            d = torch.tensor(param_digest(torch, params), dtype=torch.int64)
+            both = mesh.all_gather(d)
+            equal.append(bool(torch.equal(both[0], both[1])))
+            return res
+        step.reducer = step_fn.reducer
+        return step
+
+    loop.make_train_step = checked_make
+    try:
+        with rag_pair_setup(os.path.join(pair, "vocab.json")), \
+                recording(rag_model.RAGModel, "retrieve") as retrieved:
+            mt.scan_topt_dense.launches = 0  # main path starts
+            train_cli.main(cfg["rag_argv"])
+            b3_rag = mt.scan_topt_dense.launches  # main path ends
+    finally:
+        loop.make_train_step = real_make
+    with open(os.path.join(pair, f"retrieved{r}.json"), "w") as f:
+        json.dump([{q: ids.tolist() for q, ids in zip(args[3], out[0])}
+                   for args, _, out in retrieved], f)
+    rag = {"replicas_equal": equal, "b3_launches": b3_rag}
+    if r == 0:
+        metrics = metric_lines(os.path.join(pair, "ck", "rag-pair",
+                                            "metrics.jsonl"))
+        rag.update(losses=[m["loss/train_loss"] for m in metrics],
+                   allreduce_ms=[m["parallel/allreduce_ms"]
+                                 for m in metrics],
+                   buckets=int(metrics[0]["parallel/allreduce_buckets"]))
+    out["rag"] = rag
+    log(f"rag: B3 launches {b3_rag}, replicas equal after each step {equal}")
+    with open(os.path.join(pair, f"rank{r}.json"), "w") as f:
+        json.dump(out, f)
+    mesh.shutdown_processes()
+
+
 def row_kernels(bp: dict, errs: dict) -> list:
     """B6's-B9's entries of the kernels line from phases 19 and 20, each
     beside the bench line that drove it."""
@@ -4160,6 +4812,16 @@ def row_kernel(name: str, source: str, replaces: str, launches: int,
     }
 
 
+PHASE_S: dict = {}  # wall seconds by phase group, logged at the end
+_PHASE_T = [time.perf_counter()]
+
+
+def phase_done(name: str) -> None:
+    now = time.perf_counter()
+    PHASE_S[name] = now - _PHASE_T[0]
+    _PHASE_T[0] = now
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---------------------------------------------------------- 1 environment
@@ -4187,6 +4849,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     mt._kernel_libs()
+    _PHASE_T[0] = time.perf_counter()
     log(f"[2] built {', '.join(mt.KERNELS)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name in mt.KERNELS:
@@ -4215,23 +4878,27 @@ def main() -> None:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         b1 = serve_phase(torch, mt, g, dev, work)
+        phase_done("3-5")
         b1["max_abs_err"] = max(b1["max_abs_err"], max_err)
         shutil.rmtree(os.path.join(work, "index"), ignore_errors=True)
         torch.cuda.empty_cache()
         dense_err, auto_rule = dense_phase(torch, mt, g, dev)
         demo = demo_phase(torch, mt, dev, work)
+        phase_done("6-7")
         torch.cuda.empty_cache()
         b3 = eval_phase(torch, mt, g, dev, work)
         b3["max_abs_err"] = max(b3["max_abs_err"], dense_err,
                                 demo["max_abs_err"])
         b3["hard_copy_demo"] = demo
         b3["auto_rule"] = auto_rule
-        shutil.rmtree(os.path.join(work, "index_bf16"), ignore_errors=True)
+        p8 = b3.pop("pair_inputs")  # its index stays for phase 27
+        phase_done("8-9")
         torch.cuda.empty_cache()
         b2_err = int8_phase(torch, mt, g, dev)
         b2 = train_phase(torch, mt, g, dev, work)
         b2["max_abs_err"] = max(b2["max_abs_err"], b2_err)
-        shutil.rmtree(os.path.join(work, "index_hybrid"), ignore_errors=True)
+        nccl_ref = b2.pop("nccl_reference")  # its index stays for phase 26
+        phase_done("10-13")
         torch.cuda.empty_cache()
         f16_errs = f16_phase(torch, mt, g, dev)
         cells, e32 = f16_train_phase(torch, mt, g, dev, work)
@@ -4247,18 +4914,50 @@ def main() -> None:
                         max(f16_errs["f16"], ev["max_abs_err"]),
                         evaluate={k: v for k, v in ev.items()
                                   if k != "timing"})
+        phase_done("14-18")
+        torch.cuda.empty_cache()
+        nccl = nccl_phase(torch, mt, work, nccl_ref)
+        shutil.rmtree(os.path.join(work, "index_hybrid"), ignore_errors=True)
+        phase_done("26")
+        torch.cuda.empty_cache()
+        pair = pair_phase(torch, mt, dev, work, p8)
+        phase_done("27")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # this slice's launches: B1 on each rank's shard (phase 27), B2 in the
+    # one-rank NCCL run (phase 26), B3 in the two-rank evaluate and rag
+    # steps (phase 27); each kernel held to its plain version on them
+    b1["launches_by_path"] = {
+        "serve_int8r": b1["launches"],
+        **{f"two_rank_int8r_rank{r}": n
+           for r, n in enumerate(pair["b1_launches"])}}
+    b1["launches"] = sum(b1["launches_by_path"].values())
+    b1["max_abs_err"] = max(b1["max_abs_err"], pair["b1_max_abs_err"])
+    b3["launches_by_path"] = {
+        "evaluate_bf16": b3["launches"],
+        **{f"two_rank_evaluate_rank{r}": n
+           for r, n in enumerate(pair["b3_launches_eval"])},
+        **{f"two_rank_rag_rank{r}": n
+           for r, n in enumerate(pair["b3_launches_rag"])}}
+    b3["launches"] = sum(b3["launches_by_path"].values())
+    b3["max_abs_err"] = max(b3["max_abs_err"], pair["b3_max_abs_err"])
+    b3["two_ranks"] = {k: pair[k] for k in ("index", "search_ms",
+                                            "merge_ms", "evaluate", "rag")}
+    b2["one_rank_nccl"] = nccl
     torch.cuda.empty_cache()
     row_errs = rows_phase(torch, mt, ms, g, dev)
     bp = bench_phase(torch, mt, ms, dev, row_errs)
     rows = row_kernels(bp, row_errs)
+    phase_done("19-20")
     torch.cuda.empty_cache()
     hf = hf_phase(torch, mt, g, dev)
+    phase_done("21-22")
     # B2's launches on every path that drove it: phase 11's jsa steps,
     # phase 21's training and evaluation, then phase 22's runs
     recipe = hf.pop("recipe")
     b2["launches_by_path"] = {"train_jsa_hybrid": b2["launches"],
+                              "train_jsa_hybrid_nccl_world1":
+                                  nccl["launches"],
                               "train_hf_rerank": hf["launches_train"],
                               "evaluate_hf_rerank": hf["launches_eval"],
                               **recipe["launches"]}
@@ -4273,6 +4972,7 @@ def main() -> None:
     ivf_train = ivf_train_phase(torch, mt, dev)
     torch.cuda.empty_cache()
     atlas = atlas_phase(torch, mt, dev)
+    phase_done("23-25")
     # the flat hybrid searches beside IVF (phases 23, 24) launched B2; the
     # Atlas-converted float16 index (phase 25) B4
     b2["launches_by_path"].update(
@@ -4290,6 +4990,8 @@ def main() -> None:
     log(f"checks of phases 23-25: {len(CHECKS)}, all passed")
     for phase, what, ok in CHECKS:
         log(f"  [{phase}] {'ok' if ok else 'FAILED'}: {what}")
+    log("phase seconds: " + ", ".join(f"{k} {v:.0f}"
+                                      for k, v in PHASE_S.items()))
     log(f"smoke took {time.perf_counter() - t_start:.0f} s")
     log(smi)
     log(json.dumps({"kernels": [b1, b3, b2, b4, b5, *rows]}))

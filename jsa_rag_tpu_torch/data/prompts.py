@@ -19,18 +19,18 @@ Behavior-port of the reference's ``tokenize_casual`` / ``tokenize_casual4gen``
 - one row per (query, passage) pair — B*K rows — unless ``concat_doc`` joins
   all K contexts into one prompt (src/rag.py:395-427).
 
-The port's own copy of ``jsa_rag_tpu/data/prompts.py`` for one process:
-``global_max_len`` is the identity (the cross-process max arrives with
-``torch.distributed``, ROADMAP queue A item 13).
+The port's own copy of ``jsa_rag_tpu/data/prompts.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import re
+
 import numpy as np
 
-import re
+from ..parallel import mesh
 
 IGNORE_INDEX = -100
 
@@ -116,9 +116,12 @@ def _pad_len(lengths, multiple: int) -> int:
 
 
 def global_max_len(m: int) -> int:
-    """Cross-process max of a batch-dependent pad length; with one process,
-    ``m`` itself."""
-    return m
+    """Cross-process max of a batch-dependent pad length (``prompts.py:
+    114-131``); with one process, ``m`` itself. Every rank pads its rows to
+    the same length, so a data-parallel step's ranks see the pad lengths of
+    the global batch. A collective: callers build their batches in lockstep
+    (the train step's and the evaluation's batches are count-aligned)."""
+    return mesh.all_max(m)
 
 
 def build_training_batch(tokenizer, queries, passages, targets,

@@ -5,9 +5,15 @@ Per batch: retrieve top-k -> rescore with the live towers -> substring-recall
 bookkeeping -> eval loss (generator CE on the gold target) -> generation
 (concat prompt, or fast-decode best-of-K; greedy or beam search), or for a
 multiple-choice task the choice letters' logits -> task metrics.
-``run_retrieval_only`` ports evaluate.py:60-102. Several processes (the
-JAX package's dummy-batch alignment and rank-merged files) arrive with
-``torch.distributed`` (ROADMAP queue A item 13).
+``run_retrieval_only`` ports evaluate.py:60-102.
+
+Over several processes each rank evaluates its shard of the data (the
+data iterator deals example ``i`` to rank ``(i + 1) % W``); a rank with
+fewer batches runs dummy ones (its
+last batch, or a template) through the whole pipeline, recording nothing,
+so every rank reaches each collective search and pad-length max together
+(``_pad_batches_across_processes``); the metrics average over every rank's
+examples and rank 0 writes the merged predictions file.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from .config import Options
 from .data.prompts import build_generation_batch
 from .tasks import get_task
 from .models.lm import lm_logits
+from .parallel import mesh
 from .train.rag_model import RAGModel
 from .utils import metrics as M
 from .utils.stats import WeightedAvgStats
@@ -69,13 +76,16 @@ def evaluate(model: RAGModel, index, params, opt: Options, data_path: str,
     dataset_wpred = []
 
     data_iterator = task.data_iterator(
-        data_path, 0, 1, repeat_if_less_than_world_size=True, opt=opt,
-        is_eval=True)
+        data_path, mesh.process_index(), mesh.process_count(),
+        repeat_if_less_than_world_size=True, opt=opt, is_eval=True)
     data_iterator = filter(None, map(task.process, data_iterator))
     batches = task.batch_iterator(data_iterator, opt.per_gpu_batch_size)
     # static row count, as in the JAX package (whose jitted programs need
     # it): the ragged tail batch repeats its last example
     batches = (_pad_batch_rows(b, opt.per_gpu_batch_size) for b in batches)
+    batches = _pad_batches_across_processes(
+        batches, rows=opt.per_gpu_batch_size,
+        extra_keys=("choices",) if hasattr(task, "choices") else ())
     task_filter = getattr(task, "filter", None)
     task_filter = task_filter if callable(task_filter) else None
 
@@ -83,7 +93,10 @@ def evaluate(model: RAGModel, index, params, opt: Options, data_path: str,
         t0 = time.perf_counter()
         lap = _Laps()
         queries, targets = batch["query"], batch["target"]
-        n_real = int(batch.get("__size__", len(queries)))
+        # a dummy batch runs every stage (the collectives inside) and
+        # records nothing
+        n_real = 0 if batch.get("__dummy__") else int(
+            batch.get("__size__", len(queries)))
         if opt.closed_book:
             passages = [[{"title": "", "text": ""}] for _ in queries]
             ret_scores = np.zeros((len(queries), 1), np.float32)
@@ -126,9 +139,7 @@ def evaluate(model: RAGModel, index, params, opt: Options, data_path: str,
         # multiple choice: the choice letters' logits at the first answer
         # position instead of generation (reference:
         # src/tasks/multiple_choice.py get_choice_logits + evaluate.py's MC
-        # path). One process, so the JAX package's cross-process dummy
-        # batches (and the "choices" key its template carries for them,
-        # ``extra_keys``) have no counterpart here.
+        # path); a dummy template carries "choices" (``extra_keys``)
         choice_rows = None
         if hasattr(task, "choices") and "choices" in batch:
             choice_rows = _choice_logits(model, params, queries, passages,
@@ -189,17 +200,23 @@ def run_retrieval_only(model: RAGModel, index, params, opt: Options,
     else:
         task = get_task(opt, model.generator_tokenizer)
     stats = WeightedAvgStats()
-    data_iterator = task.data_iterator(data_path, 0, 1, opt=opt,
-                                       is_eval=True)
+    data_iterator = task.data_iterator(
+        data_path, mesh.process_index(), mesh.process_count(), opt=opt,
+        is_eval=True)
     data_iterator = filter(None, map(task.process, data_iterator))
     batches = task.batch_iterator(data_iterator, opt.per_gpu_batch_size)
     batches = (_pad_batch_rows(b, opt.per_gpu_batch_size) for b in batches)
+    batches = _pad_batches_across_processes(
+        batches, rows=opt.per_gpu_batch_size,
+        extra_keys=("choices",) if hasattr(task, "choices") else ())
     t0 = time.time()
     n = 0
     for batch in batches:
         queries = batch["query"]
         _, _, passages = model.retrieve(index, params, queries,
                                         opt.retriever_n_context)
+        if batch.get("__dummy__"):
+            continue
         for i in range(int(batch.get("__size__", len(queries)))):
             texts = [p.get("text", "") for p in passages[i]]
             gold = _answers_of(batch, i)
@@ -235,8 +252,10 @@ def _choice_logits(model: RAGModel, params, queries, passages, choices):
 
 
 def _reduce_metrics(metrics: dict) -> dict:
-    """Weighted average of the collected metric lists (reference:
-    evaluate.py:331 avg_dist_dict), through ``WeightedAvgStats``."""
+    """Cross-process weighted average of the collected metric lists
+    (reference: evaluate.py:331 avg_dist_dict), through ``WeightedAvgStats``,
+    whose key-union alignment issues the same collectives on a rank whose
+    lists are all empty (``evaluation.py:262-276``)."""
     stats = WeightedAvgStats()
     stats.update({k: (float(np.mean(v)), float(len(v)))
                   for k, v in metrics.items() if len(v)})
@@ -258,14 +277,54 @@ def _pad_batch_rows(batch: dict, rows: int) -> dict:
     return out
 
 
+def _pad_batches_across_processes(batches, rows: int = 1,
+                                  extra_keys: tuple = ()):
+    """Several processes: a rank with fewer batches appends dummy ones up
+    to the largest count (``evaluation.py:293-325``; reference:
+    evaluate.py:44-56), so every rank issues the same collectives. The
+    dummy is the rank's last batch, or for a rank with none a template of
+    ``rows`` rows carrying ``extra_keys`` (a multiple-choice task's
+    "choices", so an all-dummy rank takes the same branches)."""
+    if mesh.process_count() == 1:
+        return batches
+    batches = list(batches)
+    max_count = mesh.all_max(len(batches))
+    if batches:
+        template = dict(batches[-1])
+    else:
+        template = _pad_batch_rows(
+            {"query": ["pad"], "target": ["pad"],
+             "passages": [[{"title": "", "text": ""}]],
+             **{k: ["pad"] for k in extra_keys},
+             "__size__": 1}, rows)
+    for _ in range(max_count - len(batches)):
+        batches.append(dict(template, __dummy__=True))
+    return batches
+
+
 def save_distributed_dataset(data, dataset_name, opt: Options):
     """Predictions -> ``<checkpoint_dir>/<name>/<dataset_name>.jsonl``
-    (src/util.py:337-362, one process: the rank-local tmp file and its
-    merge collapse into one write)."""
+    (src/util.py:337-362, ``evaluation.py:327-345``): each rank writes its
+    rows to ``tmp_dir/<rank>.json``; after a barrier rank 0 merges them in
+    rank order into the jsonl and removes the tmp files; the others wait
+    for the merge."""
     dir_path = os.path.join(opt.checkpoint_dir, opt.name)
-    os.makedirs(dir_path, exist_ok=True)
-    final_path = os.path.join(dir_path, f"{dataset_name}.jsonl")
-    logger.info("Writing dataset with scores at %s", final_path)
-    with open(final_path, "w") as fout:
-        for ex in data:
-            fout.write(json.dumps(ex, ensure_ascii=False) + "\n")
+    write_path = os.path.join(dir_path, "tmp_dir")
+    os.makedirs(write_path, exist_ok=True)
+    rank, world = mesh.process_index(), mesh.process_count()
+    with open(os.path.join(write_path, f"{rank}.json"), "w") as fw:
+        json.dump(data, fw)
+    mesh.barrier()
+    if rank == 0:
+        final_path = os.path.join(dir_path, f"{dataset_name}.jsonl")
+        logger.info("Writing dataset with scores at %s", final_path)
+        with open(final_path, "w") as fout:
+            for r in range(world):
+                path = os.path.join(write_path, f"{r}.json")
+                with open(path) as f:
+                    for ex in json.load(f):
+                        fout.write(json.dumps(ex, ensure_ascii=False)
+                                   + "\n")
+                os.unlink(path)
+        os.rmdir(write_path)
+    mesh.barrier()

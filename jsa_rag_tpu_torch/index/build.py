@@ -5,6 +5,11 @@ Host tokenisation runs ``prefetch`` windows ahead of the device on a
 thread pool; each window of ``sort_window`` batches is ordered by token
 count so every batch is cut to its own length bucket, and the embeddings are
 put back in corpus order (one gather) before the contiguous write.
+
+Over several processes each rank embeds only the passages of its own shard
+of a flat index (``index.row_offset``, ``index.local_rows``): the same rows
+a one-process build writes there, in windows cut from the shard's start.
+Nothing here is collective, so ranks need not build in step.
 """
 
 from __future__ import annotations
@@ -48,7 +53,11 @@ def build_index(
     dev = index.device
     t0 = time.time()
     window = batch_size * max(sort_window, 1)
-    spans = [(s, min(s + window, n)) for s in range(0, n, window)]
+    # a sharded flat index: this rank's rows only (of the corpus, which
+    # may be shorter than the index)
+    first = min(getattr(index, "row_offset", 0), n)
+    last = min(first + getattr(index, "local_rows", n), n)
+    spans = [(s, min(s + window, last)) for s in range(first, last, window)]
 
     def tokenize_window(span):
         start, stop = span
@@ -107,7 +116,7 @@ def build_index(
     total = time.time() - t0
     return {
         "runtime/indexing": (total, 1),
-        "indexing/passages_per_sec": (n / max(total, 1e-9), 1),
+        "indexing/passages_per_sec": ((last - first) / max(total, 1e-9), 1),
         **stats,
     }
 

@@ -10,6 +10,11 @@ sweep has covered the corpus, the staging store becomes the live one
 full re-embed; passages embedded early in a sweep use slightly older
 weights than later ones, as in the reference's asynchronous rebuild.
 
+Over several processes each rank embeds the passages of its own shard
+into its own staging store. The sweep's length in batches is the largest
+shard's, the same number on every rank (a rank whose shard is shorter
+idles through the rest), so every rank swaps on the same step.
+
 Memory: one more store during a sweep (float16 at 1.3M x 1024: +2.66 GB).
 Works for every flat storage: float16, int8r, int8, hybrid (its int8
 coarse copy is derived again from the swapped-in rows) and bf16/f32.
@@ -38,7 +43,7 @@ class IncrementalIndexRefresher:
         self.batches_per_step = batches_per_step
         self._staging = None
         self._staging_aux = None
-        self._cursor = 0
+        self._cursor = 0  # batches of the sweep taken, on every rank
 
     @property
     def active(self) -> bool:
@@ -68,11 +73,17 @@ class IncrementalIndexRefresher:
         opt = model.opt
         bs = opt.per_gpu_embedder_batch_size
         tower = params["retriever"]
+        # the sweep: the largest shard's batches; this rank's rows
+        n_batches = -(-min(idx.shard_rows, idx.n_passages) // bs)
+        last = idx.row_offset + idx.local_rows
         for _ in range(self.batches_per_step):
-            if self._cursor >= idx.n_passages:
+            if self._cursor >= n_batches:
                 break
-            start = self._cursor
-            stop = min(start + bs, idx.n_passages)
+            start = idx.row_offset + self._cursor * bs
+            stop = min(start + bs, last)
+            self._cursor += 1
+            if start >= stop:
+                continue  # a shorter shard idles to the sweep's end
             texts = [format_passage(model.store[i], opt.retriever_format)
                      for i in range(start, stop)]
             ids, mask = model.retriever_tokenizer.encode_batch(
@@ -91,8 +102,7 @@ class IncrementalIndexRefresher:
                     torch.from_numpy(mask).to(idx.device))
             self._staging, self._staging_aux = idx.write_block(
                 self._staging, self._staging_aux, start, emb[:stop - start])
-            self._cursor = stop
-        if self._cursor < idx.n_passages:
+        if self._cursor < n_batches:
             return False
         idx.swap_in(self._staging, self._staging_aux)
         self._staging = self._staging_aux = None

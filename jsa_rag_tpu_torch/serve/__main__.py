@@ -41,10 +41,9 @@ def main(argv=None, block: bool = True):
                     help="rescore-pool widening for coarse-refine search "
                          "(same meaning as the train/evaluate flag)")
     ap.add_argument("--refine_gather", default="cols",
-                    choices=("cols", "rows"),
-                    help="fp16 refine candidate gather; accepted for flag "
-                         "parity, no effect on the int8r index this port "
-                         "serves")
+                    help="fp16 refine candidate gather, 'cols' or 'rows' "
+                         "(checked as the JAX package checks it; no other "
+                         "effect: the port's store is row-major)")
     ap.add_argument("--int8r_refine", default="rows",
                     choices=("rows", "rows1", "cols"),
                     help="int8r rescore strategy (same meaning as the "
@@ -69,7 +68,8 @@ def main(argv=None, block: bool = True):
 
     index = load_index(args.index_path, device=args.device,
                        refine_r=args.refine_r,
-                       int8r_refine=args.int8r_refine)
+                       int8r_refine=args.int8r_refine,
+                       refine_gather=args.refine_gather)
     if len(store) != index.n_passages:
         raise SystemExit(
             f"passage store has {len(store)} rows but the index holds "

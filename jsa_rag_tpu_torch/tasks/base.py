@@ -2,11 +2,9 @@
 filtering (reference: src/tasks/base.py — rebuilt from the intended behavior;
 the checked-in file has unresolved merge markers).
 
-The port's own copy of ``jsa_rag_tpu/tasks/base.py`` for one process: the
-rank calls answer process 0 of 1 (``torch.distributed`` arrives with ROADMAP
-queue A item 13). It holds the directly usable ``base`` task and
-``filter_results_by_id``, the anti-cheat filter of the lm, mlm and section
-tasks."""
+The port's own copy of ``jsa_rag_tpu/tasks/base.py``. It holds the directly
+usable ``base`` task and ``filter_results_by_id``, the anti-cheat filter of
+the lm, mlm and section tasks."""
 
 from __future__ import annotations
 
@@ -15,6 +13,7 @@ import logging
 import random
 from collections import defaultdict
 
+from ..parallel import mesh
 from ..utils.metrics import exact_match_score
 
 
@@ -22,11 +21,11 @@ logger = logging.getLogger(__name__)
 
 
 def _process_count() -> int:
-    return 1
+    return mesh.process_count()
 
 
 def _process_index() -> int:
-    return 0
+    return mesh.process_index()
 
 
 class BaseTask:

@@ -14,6 +14,12 @@ write. With ``--save_optimizer`` the state also holds ``opt_state``: the
 port's ``AdamW.state_dict()`` (plain dicts of numpy arrays and ints, which
 the JAX package's ``load_checkpoint`` reads too).
 
+Over several processes every rank calls the savers together; the params
+are replicated (DDP), so rank 0 takes the host copy and writes, and the
+others return at once. A blocking save ends at a barrier (the files are
+there for every rank after it), and ``wait_for_writes`` joins rank 0's
+queue and then waits at a barrier (``checkpoint.py:95-105, 142, 234``).
+
 Leaves are saved as float32 numpy arrays whatever their dtype: a bf16 leaf
 (``--param_dtype bfloat16``) as the float32 array of the same values, which
 is lossless, needs no ml_dtypes package and loads in both packages (the
@@ -42,6 +48,7 @@ import numpy as np
 
 from ..convert import params_to_numpy, retriever_params_to_numpy
 from ..data.tokenizer import SimpleTokenizer
+from ..parallel import mesh
 
 logger = logging.getLogger(__name__)
 
@@ -93,7 +100,15 @@ _writer = _AsyncWriter()
 
 
 def wait_for_writes() -> None:
-    """Block until queued checkpoint writes finish (re-raising a failure)."""
+    """Block until queued checkpoint writes finish (re-raising a failure);
+    over several processes every rank then waits for rank 0's."""
+    _writer.join()
+    mesh.barrier()
+
+
+def wait_for_local_writes() -> None:
+    """``wait_for_writes`` without the barrier: this process's queue only
+    (the way out of a failed run, where the other ranks may not arrive)."""
     _writer.join()
 
 
@@ -131,6 +146,10 @@ def save_checkpoint(path: str, name: str, step: int, params: dict,
     queues on the background writer."""
     run_dir = os.path.join(path, name)
     step_dir = os.path.join(run_dir, f"step-{step}")
+    if mesh.process_index() != 0:
+        if block:
+            mesh.barrier()
+        return step_dir
     state = {"step": step, "params": params_to_numpy(params)}
     if opt_state is not None:
         state["opt_state"] = opt_state
@@ -152,6 +171,7 @@ def save_checkpoint(path: str, name: str, step: int, params: dict,
     if block:
         _writer.join()  # never reorder behind a queued write
         write()
+        mesh.barrier()
     else:
         _writer.submit(write)
     return step_dir
@@ -160,7 +180,12 @@ def save_checkpoint(path: str, name: str, step: int, params: dict,
 def export_retriever(path: str, step: int, retriever, tokenizer: Any = None,
                      prefix: str = "bge", block: bool = True) -> None:
     """The retriever's towers alone, one pickle per tower, with a
-    ``lastest`` symlink per tower (``checkpoint.py:219-259``)."""
+    ``lastest`` symlink per tower (``checkpoint.py:219-259``); rank 0
+    writes."""
+    if mesh.process_index() != 0:
+        if block:
+            mesh.barrier()
+        return
     host = retriever_params_to_numpy(retriever)
 
     def write():
@@ -179,6 +204,7 @@ def export_retriever(path: str, step: int, retriever, tokenizer: Any = None,
     if block:
         _writer.join()
         write()
+        mesh.barrier()
     else:
         _writer.submit(write)
 

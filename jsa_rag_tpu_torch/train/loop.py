@@ -1,7 +1,15 @@
 """The training loop (counterpart of ``jsa_rag_tpu/train/loop.py``;
 reference: train.py:113-377): the initial index build, the refresh
 schedule, the optimizer steps, periodic eval/save/retriever export, stats
-and logging, on one device.
+and logging.
+
+Over several processes (``parallel/mesh.py``) every rank runs this loop in
+step: rank 0's params are broadcast first, each rank draws its data
+coordinate's shard of the data with its own shuffle seed
+(``loop.py:150-162``), the step averages the gradients over the ranks, and
+rank 0 alone writes the metrics log, the step dumps and the checkpoints
+(``loop.py:66-70, 272, 362``). A SIGTERM or SIGUSR1 that reaches any rank
+stops every rank: an any-rank OR every step (``loop.py:337-345``).
 
 As in the JAX package, the step's loss and aux stay on the device and are
 drained to the host every 32 steps, at a log boundary, or when a
@@ -45,13 +53,16 @@ import torch
 
 from ..config import Options
 from ..index.refresh import IncrementalIndexRefresher
+from ..parallel import mesh
 from ..tasks import get_task
 from ..utils.schedulers import IndexRefreshScheduler
 from ..utils.stats import WeightedAvgStats
-from .checkpoint import export_retriever, save_checkpoint, wait_for_writes
+from .checkpoint import (export_retriever, save_checkpoint,
+                         wait_for_local_writes, wait_for_writes)
 from .modes import StepRng
 from .optim import AdamW
-from .step import host_batch_rows, make_train_step
+from .step import (host_batch_rows, make_train_step, param_placement,
+                   span_ms, sync_params)
 
 logger = logging.getLogger(__name__)
 
@@ -106,18 +117,25 @@ class StepProfiler:
 
 def train(model, index, params: dict, tx: AdamW, opt: Options,
           step: int = 0, evaluate_fn=None,
-          checkpoint_path: str | None = None):
+          checkpoint_path: str | None = None, grid: mesh.Grid | None = None):
     """Run the training loop; returns the final step. ``params`` is updated
-    in place."""
+    in place. ``grid``: the processes' grid (None: ``training_grid``)."""
+    grid = grid or mesh.training_grid(opt)
+    param_placement(opt, grid)
+    rank0 = grid.rank == 0
     run_stats = WeightedAvgStats()
     checkpoint_path = checkpoint_path or os.path.join(opt.checkpoint_dir,
                                                       opt.name)
     os.makedirs(checkpoint_path, exist_ok=True)
-    metrics_log = open(os.path.join(checkpoint_path, "metrics.jsonl"), "a")
+    # rank 0 alone appends: N writers would interleave every record
+    metrics_log = (open(os.path.join(checkpoint_path, "metrics.jsonl"), "a")
+                   if rank0 else None)
     profiler = StepProfiler(opt.profile_steps,
                             os.path.join(checkpoint_path, "profile"),
                             model.device)
+    completed = False
     try:
+        sync_params(tx.leaves)
         mode = train_mode_of(opt)
         first_step = step + 1
         uses_index = not opt.use_file_passages and not opt.closed_book
@@ -136,7 +154,8 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
             refresher = IncrementalIndexRefresher(
                 model, index, batches_per_step=opt.incremental_refresh_batches)
         train_step = make_train_step(model, mode, tx)
-        batch_rows = host_batch_rows(opt)
+        reducer = train_step.reducer  # None without a process group
+        batch_rows = host_batch_rows(opt, grid)
 
         stop_requested = {"flag": False}
 
@@ -149,23 +168,32 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
         except ValueError:
             pass  # not the main thread (e.g. tests)
 
-        rng = StepRng.from_seed(opt.seed, model.device)
+        # one Philox stream per data coordinate (JAX splits one global key
+        # per row): ranks with different rows draw differently
+        rng = StepRng.from_seed(opt.seed + 7_919 * grid.data_rank,
+                                model.device)
         epoch = 0
         # bumped on every rebuild and swap: a prefetched retrieval is valid
         # only against the rows it searched
         index_version = 0
-        pending: list = []  # (iter_stats, loss, aux, weight), on the device
+        # (iter_stats, loss, aux, weight, all-reduce span), on the device
+        pending: list = []
         last_loss = float("nan")
         to_skip = step  # batches the restored steps already took
 
         def opt_state():
-            return tx.state_dict() if opt.save_optimizer else None
+            # only rank 0 writes, so only it copies the moments
+            return tx.state_dict() if opt.save_optimizer and rank0 else None
 
         def drain_pending() -> float:
             nonlocal last_loss
-            for istats, ldev, adev, w in pending:
+            for istats, ldev, adev, w, span in pending:
                 last_loss = float(ldev)
                 istats["loss/train_loss"] = (last_loss, w)
+                if span is not None:
+                    istats["parallel/allreduce_ms"] = (span_ms(span), 1)
+                    istats["parallel/allreduce_buckets"] = (
+                        float(reducer.buckets), 1)
                 for k, v in adev.items():
                     if not k.startswith("debug/"):
                         istats[k] = (float(v), w)
@@ -176,14 +204,15 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
         while step < opt.total_steps:
             epoch += 1
             data_iterator = task.data_iterator(
-                opt.train_data, 0, 1, repeat_if_less_than_world_size=True,
-                opt=opt)
+                opt.train_data, grid.data_rank, grid.n_data,
+                repeat_if_less_than_world_size=True, opt=opt)
             data_iterator = filter(None, map(task.process, data_iterator))
             # per-(seed, epoch, rank) shuffle seed (loop.py:155-162)
             batches = task.batch_iterator(
                 data_iterator, batch_rows, drop_last=True, shuffle=True,
                 shuffle_buffer_size=opt.shuffle_buffer_size,
-                shuffle_seed=opt.seed * 1_000_003 + epoch * 9_973)
+                shuffle_seed=(opt.seed * 1_000_003 + epoch * 9_973
+                              + grid.data_rank))
             batches_it = iter(batches)
             while to_skip > 0 and next(batches_it, None) is not None:
                 to_skip -= 1
@@ -216,6 +245,11 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                     iter_stats["runtime/incremental_refresh"] = (
                         time.time() - t0, 1)
                 queries, targets = batch["query"], batch["target"]
+                if len(queries) != batch_rows:
+                    # the mean over ranks is the global batch's mean only
+                    # when every rank holds the same number of rows
+                    raise RuntimeError(
+                        f"a batch of {len(queries)} rows, not {batch_rows}")
                 filt = getattr(task, "filter", None)
                 filt = filt if callable(filt) else None
                 retrieval = (prefetched[0] if prefetched is not None
@@ -231,8 +265,10 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                                                            1)
                 next_batch = next(batches_it, None)
                 prefetched = None
-                if (opt.pipeline_retrieval and next_batch is not None
-                        and step < opt.total_steps):
+                # the prefetch searches collectively: every rank takes it or
+                # none does (a rank's epoch may end a batch before another's)
+                if (opt.pipeline_retrieval and step < opt.total_steps
+                        and not mesh.any_rank(next_batch is None)):
                     # the next batch's candidates from the pre-step params
                     t0 = time.time()
                     with profiler.span("prefetch_retrieve"):
@@ -251,7 +287,8 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                 # host time to enqueue the step; the device finishes later
                 iter_stats["runtime/fwdbwd+update"] = (time.time() - t0, 1)
                 iter_stats["runtime/train_step"] = (time.time() - t_step, 1)
-                pending.append((iter_stats, loss, aux, len(queries)))
+                pending.append((iter_stats, loss, aux, len(queries),
+                                reducer and reducer.last_span))
                 if len(pending) >= DRAIN_EVERY:
                     drain_pending()
 
@@ -262,10 +299,11 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                     info.update({k: v.tolist() for k, v in aux.items()
                                  if k.startswith("debug/")})
                     info["loss"] = loss_v
-                    with open(os.path.join(
-                            checkpoint_path,
-                            f"training_info_step{step}.json"), "w") as f:
-                        json.dump(info, f, indent=1)
+                    if rank0:
+                        with open(os.path.join(
+                                checkpoint_path,
+                                f"training_info_step{step}.json"), "w") as f:
+                            json.dump(info, f, indent=1)
 
                 if step % opt.log_freq == 0:
                     loss_v = drain_pending()
@@ -308,7 +346,11 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                                     retriever_tokenizer=model
                                     .retriever_tokenizer, block=False)
 
-                if stop_requested["flag"]:
+                stop_now = stop_requested["flag"]
+                if grid.world > 1:
+                    # the signal may reach one rank: stop every rank
+                    stop_now = mesh.any_rank(stop_now)
+                if stop_now:
                     drain_pending()
                     _flush_metrics(metrics_log, step, run_stats)
                     if step % opt.save_freq != 0:
@@ -319,6 +361,7 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                             retriever_tokenizer=model.retriever_tokenizer)
                     logger.info("preemption checkpoint saved at step %d",
                                 step)
+                    completed = True
                     return step
 
                 if step >= opt.total_steps:
@@ -326,15 +369,22 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                 batch = next_batch
         drain_pending()
         _flush_metrics(metrics_log, step, run_stats)
+        completed = True
         return step
     finally:
         profiler.stop()  # a span past the last step ends with the run
-        metrics_log.close()
-        wait_for_writes()
+        if metrics_log is not None:
+            metrics_log.close()
+        if completed:
+            wait_for_writes()
+        else:  # a failing rank does not wait at the others' barrier
+            wait_for_local_writes()
 
 
 def _write_metrics(metrics_log, step: int, avg: dict) -> None:
-    if avg:
+    """One stats window -> a metrics.jsonl line (rank 0; the averages
+    themselves are a collective every rank takes part in)."""
+    if metrics_log is not None and avg:
         metrics_log.write(json.dumps(
             {"step": step, **{k: float(v) for k, v in avg.items()}}) + "\n")
         metrics_log.flush()

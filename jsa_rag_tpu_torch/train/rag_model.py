@@ -38,6 +38,7 @@ from ..models.lm import (LMConfig, beam_generate, greedy_generate,
                          lm_loss, lm_sequence_logprob)
 from ..models.lora import LoRAConfig
 from ..models.retriever import DualEncoderRetriever
+from ..parallel.mesh import process_count
 from .modes import MODE_LOSSES, ApplyFns
 
 BERT_MAX_SEQ_LENGTH = 512  # reference: src/rag.py:40
@@ -258,6 +259,10 @@ class RAGModel:
         supplied slots so a pad never wins a selection."""
         width = min(max(1, self.opt.retriever_n_context),
                     max(1, max(len(p) for p in file_passages)))
+        if process_count() > 1:
+            # the batch-max width is per-rank data; the static cap gives
+            # every rank the same shapes (``rag_model.py:364-370``)
+            width = max(1, self.opt.retriever_n_context)
         pool = self._supplied_passages(file_passages, width)
         valid = np.zeros((len(file_passages), width), bool)
         for i, p in enumerate(file_passages):
@@ -284,12 +289,15 @@ class RAGModel:
         """Prior + posterior retrieval: both query towers embed, then ONE
         search over the concatenated 2B queries (``rag_model.py:198-262``).
         Returns (prior ids, post ids, prior passages, post passages). Under
-        ``retrieve_with_rerank``, or over an index that is not flat: two
-        ``retrieve`` calls, posterior first (``rag_model.py:206-218``). An
-        IVF search scores the union of the lists its batch probes, so one
-        search of the 2B queries would return other ids than two of B."""
+        ``retrieve_with_rerank``, over an index that is not flat, or over
+        several processes: two ``retrieve`` calls, posterior first
+        (``rag_model.py:203-218``). An IVF search scores the union of the
+        lists its batch probes, so one search of the 2B queries would return
+        other ids than two of B; a sharded search gathers each rank's own
+        queries (``index.search``), which the fused call does not."""
         if (self.opt.retrieve_with_rerank
-                or not isinstance(index, ShardedFlatIndex)):
+                or not isinstance(index, ShardedFlatIndex)
+                or process_count() > 1):
             post_ids, _, post_passages = self.retrieve(
                 index, params, post_queries, topk, posterior=True,
                 iter_stats=iter_stats)
