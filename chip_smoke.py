@@ -5,7 +5,8 @@ benches, training and evaluation from HF checkpoint directories at full
 width, the repo's eval recipe (beam search) with the multiple-choice and
 mlm tasks, the IVF indexes (training, evaluate and serve through ivfpq),
 the Atlas index interop, and several processes (a one-rank NCCL group,
-two ranks sharing the card over gloo), every kernel of those paths against
+two ranks sharing the card over gloo: data parallelism, FSDP, tensor
+parallelism and the sharded indexes), every kernel of those paths against
 its plain PyTorch version.
 
     python3 chip_smoke.py            # from the repository root, one card
@@ -117,7 +118,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     peak memory; the checkpoint: generator base bit-identical, every
     other trainable leaf moved;
 16. vrag (union KL, ``--use_gradient_checkpoint_retriever true``) and
-    concat (``--gen_method concat``) on the saved index, 4 steps each, with
+    concat (``--gen_method concat``) on the saved index, 3 steps each, with
     the same records; vrag's posterior passage tower bit-identical, and
     under concat every retriever leaf equal to init x prod(1 - lr_t * wd)
     of its group, the LoRA leaves moved; concat saves with
@@ -300,6 +301,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     questions and the passages the ranks retrieved (replayed: random
     towers embed every text alike, so a query embedded in another batch
     can swap near-tied passages).
+28. (run next, on the same card and files) two ranks over gloo again:
+    (i) ``--shard_optim`` (FSDP) on (2, 1), two rag steps with the
+    generator at all 16 of its layers (phase 27's cut lifted: each rank
+    holds half of the params, mu and nu between steps), one question a
+    rank; (ii) ``--tensor_parallel`` on (1, 2), 8 of the 16 heads and 4 of
+    the 8 kv heads a rank, both ranks on the first question; each run's
+    losses within ``PAIR_LOSS_RTOL`` of one process (batch 2 and 1) over
+    the same questions and the replayed passages, and a sample of the
+    gathered params (every ``SHARD_SAMPLE``-th element of each leaf) after
+    each step within it too; per rank and step the resident bytes of
+    params + mu + nu beside one process's, the peak allocation and the
+    seconds of the FSDP gathers and reduce-scatters; B3 on each rank's
+    shard of phase 8's index, held to its plain version; (iii) the IVF
+    index of 1,300,000 x 1024 (``pair_rows``) sharded over the ranks,
+    each building from its half of the rows (k-means with one all-reduce
+    an iteration, the assignments' all-gather, the rows' exchange), dense
+    bf16 and pq-32 + refine at the auto ``n_lists`` (phase 23's), global
+    batches of 8 and 64 at n_probe 8 and 71: recall@100 against the exact
+    f32 oracle no lower than one process's IVF on the same rows minus
+    0.002; a pq-32 index saved by the pair and loaded in one process
+    returns the pair's ids except among ties; (iv) ``python -m
+    jsa_rag_tpu_torch.analysis.extract_towers`` on (i)'s checkpoint: the
+    merged generator's logits within ``EXPORT_RTOL`` of ``lora_apply``'s
+    on the same tokens, and ``recall_mrr`` on (i)'s retrievals against
+    phase 8's first passages.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, the ``kernels`` JSON object (B1-B9) and
@@ -377,7 +403,7 @@ INT8_CORE = ("CUDA sm_90a, topt_int8r2.cu on the int8 wgmma core "
              "(wgmma_scan.cuh: TMA ring, wgmma m64n256k32 s8, persistent "
              "blocks)")
 TRAIN_STEPS = 3  # flagship 20,000
-MODE_STEPS = 4   # the vrag and concat cells
+MODE_STEPS = 3   # the vrag and concat cells
 # greedy decode at bf16 against a cache-free forward: the two run the same
 # bf16 layers on different matmul shapes, so activations round differently;
 # a generated token must be the cache-free argmax or within this many nats
@@ -1966,8 +1992,8 @@ def f16_train_phase(torch, mt, g, dev, work):
         restored = {}
         real = train_cli.set_optim
 
-        def spy(opt, params, opt_state=None, step=0):
-            tx = real(opt, params, opt_state, step)
+        def spy(opt, params, opt_state=None, step=0, placement=None):
+            tx = real(opt, params, opt_state, step, placement)
             # a LoRA leaf: trained with gradients, so its moments are not 0
             i = next(i for i, (p, lab) in enumerate(zip(tx.paths, tx.labels))
                      if p[0] == "lora" and lab != "frozen")
@@ -2631,8 +2657,9 @@ def write_safetensors(path: str, tensors: dict, metadata=None) -> None:
 # to the phase's disk peak, and past 8 layers the phase outgrows ~5
 # minutes and bf16 rounding alone (the f32 cache is exact: see
 # jsa_rag_tpu_torch/analysis/decode_drift.py) nears the greedy check's
-# 0.1-nat bound
-HF_GEN_LAYERS = 8
+# 0.1-nat bound; 6 (not 8) keeps the whole smoke, phase 28 included,
+# inside its 1,200 s
+HF_GEN_LAYERS = 6
 BGE_LARGE_CONFIG = {
     "architectures": ["BertModel"], "model_type": "bert",
     "hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 16,
@@ -2963,8 +2990,9 @@ def hf_phase(torch, mt, g, dev) -> dict:
         log(f"  cut: the generator's depth, {HF_GEN_LAYERS} of 32 layers "
             f"(widths as published): each layer adds 1.22 GiB to the "
             f"phase's disk peak (32 layers pass the 45 GiB a run may "
-            f"write), and past 8 layers the phase outgrows ~5 minutes and "
-            f"bf16 rounding nears the greedy check's 0.1-nat bound")
+            f"write), past 8 layers the phase outgrows ~5 minutes and "
+            f"bf16 rounding nears the greedy check's 0.1-nat bound, and 6 "
+            f"keeps the whole smoke inside its 1,200 s")
     log("  the HF directories hold no tokenizer files: the SimpleTokenizer "
         "fallback, --max_vocab 30522")
     work = tempfile.mkdtemp(prefix="chip_smoke_hf_")
@@ -4379,18 +4407,7 @@ def pair_phase(torch, mt, dev, work, p8: dict) -> dict:
     train2 = os.path.join(pair, "train2.jsonl")
     with open(train2, "w") as f:
         f.writelines(two)
-    rag_argv = FLAGSHIP + [
-        "--gold_score_mode", "rag", "--dropout", "0",
-        "--use_gradient_checkpoint_retriever", "true",
-        "--use_gradient_checkpoint_generator", "true",
-        "--index_dtype", "bfloat16", "--load_index_path", p8["index"],
-        "--passages", p8["passages"], "--train_data", train2,
-        "--checkpoint_dir", os.path.join(pair, "ck"), "--warmup_steps", "0",
-        # cosine's first update has lr 0: linear's moves the weights at step
-        # 1, so step 2's loss is the updated replicas'
-        "--scheduler", "linear",
-        "--total_steps", "2", "--save_freq", "1000000", "--log_freq", "1",
-        "--eval_freq", "1000000", "--refresh_index", "0-40000:40000"]
+    rag_argv = pair_rag_argv(p8, train2, os.path.join(pair, "ck"))
     one_argv = [a for a in rag_argv]
     one_argv[one_argv.index("--per_gpu_batch_size") + 1] = "2"
     layers = model_io.LM_PRESETS["large"]["layers"]
@@ -4549,10 +4566,27 @@ def pair_phase(torch, mt, dev, work, p8: dict) -> dict:
                                 "generator_layers": PAIR_GEN_LAYERS}}
 
 
+def pair_rag_argv(p8: dict, train: str, ck: str) -> list:
+    """Phase 27's (and 28's) two rag steps over phase 8's bf16 index."""
+    return FLAGSHIP + [
+        "--gold_score_mode", "rag", "--dropout", "0",
+        "--use_gradient_checkpoint_retriever", "true",
+        "--use_gradient_checkpoint_generator", "true",
+        "--index_dtype", "bfloat16", "--load_index_path", p8["index"],
+        "--passages", p8["passages"], "--train_data", train,
+        "--checkpoint_dir", ck, "--warmup_steps", "0",
+        # cosine's first update has lr 0: linear's moves the weights at step
+        # 1, so step 2's loss is the updated replicas'
+        "--scheduler", "linear",
+        "--total_steps", "2", "--save_freq", "1000000", "--log_freq", "1",
+        "--eval_freq", "1000000", "--refresh_index", "0-40000:40000"]
+
+
 @contextlib.contextmanager
-def rag_pair_setup(vocab_path: str):
-    """Phase 27's rag runs: the generator at ``PAIR_GEN_LAYERS`` layers
-    and both tokenizers frozen on the vocabulary at ``vocab_path``."""
+def rag_pair_setup(vocab_path: str, gen_layers: int | None = None):
+    """Phase 27's rag runs: the generator at ``gen_layers`` layers
+    (default ``PAIR_GEN_LAYERS``) and both tokenizers frozen on the
+    vocabulary at ``vocab_path``."""
     from jsa_rag_tpu_torch import model_io
     from jsa_rag_tpu_torch.data.tokenizer import SimpleTokenizer
 
@@ -4560,7 +4594,7 @@ def rag_pair_setup(vocab_path: str):
         vocab = json.load(f)
     layers = model_io.LM_PRESETS["large"]["layers"]
     real = model_io.load_tokenizer
-    model_io.LM_PRESETS["large"]["layers"] = PAIR_GEN_LAYERS
+    model_io.LM_PRESETS["large"]["layers"] = gen_layers or PAIR_GEN_LAYERS
     model_io.load_tokenizer = lambda path, max_vocab: SimpleTokenizer(
         vocab=dict(vocab), max_vocab=max_vocab, frozen=True)
     try:
@@ -4767,6 +4801,508 @@ def pair_worker(cfg_path: str) -> None:
     mesh.shutdown_processes()
 
 
+# --------------------------------------------------------------- phase 28
+SHARD_TIMEOUT_S = 900
+SHARD_SAMPLE = 4099  # every this many elements of a leaf are compared
+# two Adam updates (lr 2e-5, each at most ~lr in size, weight decay aside)
+# may round to opposite signs where a gradient is tiny: a sampled param may
+# differ from one process's by up to twice their sum; a leaf on the wrong
+# rank or in the wrong place differs by the weights' scale (~0.02)
+SHARD_PARAM_ATOL = 1e-4
+SHARD_IVF_BATCHES = (8, 64)   # global batches, half a rank
+SHARD_IVF_PROBES = (8, 71)
+SHARD_IVF_CODE = 32
+# the merged generator of ``extract_towers`` against ``lora_apply``'s on
+# the same tokens, both in f32: the same sums in the same order
+EXPORT_RTOL = 1e-4
+
+
+def param_sample(torch, params) -> dict:
+    """Every ``SHARD_SAMPLE``-th element of each leaf, f32 on the host, by
+    tree path."""
+    from jsa_rag_tpu_torch.train.optim import named_leaves
+
+    return {"/".join(p): t.detach().reshape(-1)[::SHARD_SAMPLE].float().cpu()
+            for p, t in named_leaves(params).items()}
+
+
+def sample_diff(a: dict, b: dict) -> tuple:
+    """(max |a - b| / max |b| over the leaves whose max |b| is at least
+    1e-3, max |a - b| over every leaf) of two ``param_sample`` results of
+    one tree (a LoRA B starts at zero: its values are updates alone, held
+    by the absolute bound)."""
+    if set(a) != set(b):
+        raise AssertionError(f"trees differ: {sorted(set(a) ^ set(b))[:4]}")
+    rel = ab = 0.0
+    for k in b:
+        if not b[k].numel():
+            continue
+        d = float((a[k] - b[k]).abs().max())
+        scale = float(b[k].abs().max())
+        if scale >= 1e-3:
+            rel = max(rel, d / scale)
+        ab = max(ab, d)
+    return rel, ab
+
+
+@contextlib.contextmanager
+def sharded_step_records(torch, dev, out: list, save_dir: str | None,
+                         tag: str):
+    """Wrap the training loop's step: after each, this rank's resident
+    bytes of params, mu and nu, the peak allocation of the step, the
+    cumulative seconds of the FSDP gathers and reduce-scatters, and (rank
+    0, in ``save_dir``) a ``param_sample`` of the full tree, gathered
+    (a collective) where the placement splits it."""
+    from jsa_rag_tpu_torch.parallel import mesh
+    from jsa_rag_tpu_torch.train import loop
+    from jsa_rag_tpu_torch.train.optim import named_leaves
+
+    real = loop.make_train_step
+
+    def make(model, mode, tx):
+        step_fn = real(model, mode, tx)
+        pl = tx.placement
+
+        def step(params, batch, rng):
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            res = step_fn(params, batch, rng)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            moments = sum(m.numel() * 4 for m in tx.mu + tx.nu
+                          if m is not None)
+            held = sum(t.numel() * t.element_size()
+                       for t in named_leaves(params).values())
+            rec = {"params_bytes": held, "moment_bytes": moments,
+                   "max_allocated": (torch.cuda.max_memory_allocated(dev)
+                                     if dev.type == "cuda" else 0),
+                   "seconds": dict(pl.seconds) if pl is not None else {}}
+            ctx = pl.full() if pl is not None else contextlib.nullcontext()
+            with ctx:  # the gather of the sample is not the step's
+                sample = param_sample(torch, params)
+            if pl is not None:
+                pl.seconds.update(rec["seconds"])
+            if save_dir is not None and mesh.process_index() == 0:
+                torch.save(sample, os.path.join(
+                    save_dir, f"{tag}_step{len(out) + 1}.pt"))
+            out.append(rec)
+            return res
+        step.reducer = step_fn.reducer
+        return step
+
+    loop.make_train_step = make
+    try:
+        yield out
+    finally:
+        loop.make_train_step = real
+
+
+def shard_argv(p8: dict, sh: str, train: str, name: str, dev,
+               **flags) -> list:
+    """Phase 27's rag argv for phase 28's run ``name``, each of ``flags``
+    (``--flag value``) set in place or added."""
+    argv = pair_rag_argv(p8, train, os.path.join(sh, "ck"))
+    for flag, value in dict(flags, device=str(dev), name=name).items():
+        flag = f"--{flag}"
+        if flag in argv:
+            argv[argv.index(flag) + 1] = value
+        else:
+            argv += [flag, value]
+    return argv
+
+
+def shard_phase(torch, mt, dev, work, p8: dict) -> dict:
+    """Phase 28: two ranks share cuda:0 over gloo, as in phase 27: (i)
+    ``--shard_optim`` (FSDP) on (2, 1) at the generator's full 16 layers,
+    (ii) ``--tensor_parallel`` on (1, 2), (iii) the IVF index sharded over
+    the two ranks at 1.3M x 1024; then (iv) ``extract_towers`` and
+    ``recall_mrr`` on the FSDP run's checkpoint, and the one-process
+    references. -> the records and B3's launches."""
+    import numpy as np
+
+    from jsa_rag_tpu_torch import model_io
+    from jsa_rag_tpu_torch.analysis import extract_towers, recall_mrr
+    from jsa_rag_tpu_torch.convert import (lm_params_from_numpy,
+                                           lora_params_from_numpy)
+    from jsa_rag_tpu_torch.index import load_index
+    from jsa_rag_tpu_torch.index.ivf import ShardedIVFIndex, auto_n_lists
+    from jsa_rag_tpu_torch.models.lm import LMConfig, lm_logits
+    from jsa_rag_tpu_torch.models.lora import LoRAConfig, lora_apply
+    from jsa_rag_tpu_torch.parallel import dryrun
+    from jsa_rag_tpu_torch.train import __main__ as train_cli
+    from jsa_rag_tpu_torch.train.checkpoint import load_checkpoint
+    from jsa_rag_tpu_torch.train.rag_model import RAGModel
+
+    layers = model_io.LM_PRESETS["large"]["layers"]
+    log(f"[28] two ranks sharing {torch.cuda.get_device_name(0)} over gloo: "
+        f"(i) --shard_optim on (2, 1), two rag steps at all {layers} "
+        f"generator layers; (ii) --tensor_parallel on (1, 2); (iii) the IVF "
+        f"index of {N_INDEX} x {DIM} sharded; (iv) extract_towers and "
+        f"recall_mrr on (i)'s checkpoint")
+    t0 = time.perf_counter()
+    pair = os.path.join(work, "pair")  # phase 27's questions and vocabulary
+    sh = os.path.join(work, "shard")
+    os.makedirs(sh, exist_ok=True)
+    train2 = os.path.join(pair, "train2.jsonl")
+    train1 = os.path.join(sh, "train1.jsonl")
+    with open(train2) as f:
+        two = f.readlines()
+    with open(train1, "w") as f:
+        f.write(two[0])
+    cfg = {
+        "sh": sh, "pair": pair, "device": str(dev),
+        "fsdp_argv": shard_argv(p8, sh, train2, "rag-fsdp", dev,
+                                shard_optim="true", save_freq="2"),
+        "tp_argv": shard_argv(p8, sh, train1, "rag-tp", dev,
+                              tensor_parallel="true", mesh_index="2"),
+        "sizes": {k: globals()[k] for k in ("N_INDEX", "DIM", "TOPK",
+                                            "PAIR_CHUNK")}}
+    with open(os.path.join(sh, "cfg.json"), "w") as f:
+        json.dump(cfg, f)
+    t1 = time.perf_counter()
+    code = ("import sys\nimport chip_smoke\n"
+            "chip_smoke.shard_worker(sys.argv[1])\n")
+    results = dryrun.launch(code, 2, SHARD_TIMEOUT_S,
+                            args=(os.path.join(sh, "cfg.json"),))
+    for r, res in enumerate(results):
+        for line in res.stdout.splitlines():
+            log(f"  rank {r}: {line}")
+        if res.returncode != 0:
+            raise AssertionError(f"rank {r} exited {res.returncode}: "
+                                 f"{res.stderr[-3000:]}")
+    ranks_s = time.perf_counter() - t1
+    got = []
+    for r in (0, 1):
+        with open(os.path.join(sh, f"rank{r}.json")) as f:
+            got.append(json.load(f))
+
+    # the one-process references: the same questions at batch 2 (FSDP) and
+    # 1 (TP), each rank's retrieved passages replayed
+    def one_process(part, argv, batch):
+        replay = {}
+        for r in (0, 1):
+            with open(os.path.join(sh, f"retrieved_{part}{r}.json")) as f:
+                for step, rows in enumerate(json.load(f)):
+                    replay.update({(step, q): ids for q, ids in rows.items()})
+        calls = []
+        real_retrieve = RAGModel.retrieve
+
+        def replayed(self, index, params, queries, topk, **kw):
+            step = len(calls)
+            calls.append(queries)
+            ids = np.asarray([replay[(step, q)] for q in queries], np.int64)
+            return (ids, np.zeros(ids.shape, np.float32),
+                    self.passage_texts(ids))
+
+        argv = [a for a in argv]
+        argv[argv.index("--per_gpu_batch_size") + 1] = str(batch)
+        argv[argv.index("--name") + 1] += "-one"
+        if "--save_freq" in argv:
+            argv[argv.index("--save_freq") + 1] = "1000000"
+        for flag in ("--shard_optim", "--tensor_parallel", "--mesh_index"):
+            if flag in argv:
+                del argv[argv.index(flag):argv.index(flag) + 2]
+        recs = []
+        RAGModel.retrieve = replayed
+        try:
+            with rag_pair_setup(os.path.join(pair, "vocab.json"), layers), \
+                    sharded_step_records(torch, dev, recs, sh,
+                                         f"{part}-one"):
+                train_cli.main(argv)
+        finally:
+            RAGModel.retrieve = real_retrieve
+        torch.cuda.empty_cache()
+        losses = [m["loss/train_loss"] for m in metric_lines(os.path.join(
+            sh, "ck", argv[argv.index("--name") + 1], "metrics.jsonl"))]
+        return losses, recs
+
+    out = {"ranks_s": ranks_s}
+    for part, batch in (("fsdp", 2), ("tp", 1)):
+        t2 = time.perf_counter()
+        one_losses, one_recs = one_process(part, cfg[f"{part}_argv"], batch)
+        rank = got[0][part]
+        diffs = [abs(a - b) / max(1.0, abs(b))
+                 for a, b in zip(rank["losses"], one_losses)]
+        samples = [sample_diff(torch.load(os.path.join(
+            sh, f"{part}_step{i}.pt")), torch.load(os.path.join(
+                sh, f"{part}-one_step{i}.pt"))) for i in (1, 2)]
+        check_launches(f"B3 in each rank's {part} rag steps",
+                       [g[part]["b3_launches"] for g in got])
+        one_bytes = one_recs[-1]["params_bytes"] + one_recs[-1][
+            "moment_bytes"]
+        rec = {"losses": rank["losses"], "one_process_losses": one_losses,
+               "max_rel_loss_diff": max(diffs),
+               "sample_rel_diff": [a for a, _ in samples],
+               "sample_abs_diff": [b for _, b in samples],
+               "b3_launches": [g[part]["b3_launches"] for g in got],
+               "steps": [g[part]["steps"] for g in got],
+               "one_process_steps": one_recs,
+               "one_process_s": time.perf_counter() - t2}
+        log(f"  {part}: losses {rank['losses']} (one process at batch "
+            f"{batch}: {one_losses}; max rel diff {max(diffs):.2e}, bound "
+            f"{PAIR_LOSS_RTOL}); sampled params after each step, max rel "
+            f"diff " + ", ".join(f"{a:.2e}" for a, _ in samples)
+            + f" (bound {PAIR_LOSS_RTOL}), max abs diff "
+            + ", ".join(f"{b:.2e}" for _, b in samples)
+            + f" (bound {SHARD_PARAM_ATOL})")
+        for r, g in enumerate(got):
+            for i, st in enumerate(g[part]["steps"]):
+                log(f"  {part} rank {r} step {i + 1}: params + mu + nu "
+                    f"{(st['params_bytes'] + st['moment_bytes']) / 2**30:.2f}"
+                    f" GiB (one process {one_bytes / 2**30:.2f} GiB), "
+                    f"max allocated {st['max_allocated'] / 2**30:.2f} GiB"
+                    f"; gathers {st['seconds'].get('gather', 0):.2f} s, "
+                    f"reduce-scatters "
+                    f"{st['seconds'].get('reduce_scatter', 0):.2f} s "
+                    f"(cumulative)")
+        if (max(diffs) > PAIR_LOSS_RTOL or len(diffs) != 2
+                or max(a for a, _ in samples) > PAIR_LOSS_RTOL
+                or max(b for _, b in samples) > SHARD_PARAM_ATOL):
+            raise AssertionError(f"two-rank {part}: {rec}")
+        out[part] = rec
+
+    # (iii) the IVF index: one-process builds on the same rows
+    ref = torch.load(os.path.join(pair, "ref.pt"))
+    q, oracle = ref["q"].to(dev), ref["oracle"]
+    n_lists = auto_n_lists(N_INDEX)
+    e32 = pair_rows(torch, 0, N_INDEX, dev)
+    ivf = {"n_lists": n_lists, "cells": {}}
+    for name in ("dense", "pq+refine"):
+        one = ShardedIVFIndex(
+            N_INDEX, DIM, "bfloat16", device=dev, n_lists=n_lists,
+            storage="dense" if name == "dense" else "pq",
+            code_size=SHARD_IVF_CODE, refine=name != "dense")
+        one.train(e32)
+        cell = {"one_process_build_s": one.build_s,
+                "two_rank_build_s": [g["ivf"][name]["build_s"]
+                                     for g in got], "rows": []}
+        for b in SHARD_IVF_BATCHES:
+            for p in SHARD_IVF_PROBES:
+                _, ids = one.search(q[:b], TOPK, n_probe=p)
+                key = f"{b}/{p}"
+                pair_ids = torch.cat([torch.tensor(
+                    g["ivf"][name]["ids"][key]) for g in got])
+                r_one = _recall(ids.cpu(), oracle[:b])
+                r_two = _recall(pair_ids, oracle[:b])
+                row = {"B": b, "n_probe": p, "recall_at_100": r_two,
+                       "one_process": r_one,
+                       "ms": [g["ivf"][name]["ms"][key] for g in got]}
+                cell["rows"].append(row)
+                log(f"  ivf {name} B={b} n_probe={p}: recall@100 "
+                    f"{r_two:.4f} (one process {r_one:.4f}); rank ms "
+                    + ", ".join(f"{m:.2f}" for m in row["ms"]))
+                if r_two < r_one - PAIR_RECALL_SLACK:
+                    raise AssertionError(f"sharded IVF {name}: {row}")
+        ivf["cells"][name] = cell
+        log(f"  ivf {name} builds: two ranks "
+            + "; ".join(", ".join(f"{k} {v:.2f}" for k, v in s.items())
+                        for s in cell["two_rank_build_s"])
+            + " s; one process " + ", ".join(
+                f"{k} {v:.2f}" for k, v in one.build_s.items()) + " s")
+        del one
+        torch.cuda.empty_cache()
+    del e32
+    # the pair's saved pq index, loaded in one process: the same ids
+    back = load_index(os.path.join(sh, "ivf_pq"), device=dev)
+    same = total = 0
+    for b in SHARD_IVF_BATCHES:
+        for p in SHARD_IVF_PROBES:
+            s1, i1 = back.search(q[:b], TOPK, n_probe=p)
+            key = f"{b}/{p}"
+            ts = torch.cat([torch.tensor(g["ivf"]["pq"]["scores"][key])
+                            for g in got])
+            ti = torch.cat([torch.tensor(g["ivf"]["pq"]["ids"][key])
+                            for g in got])
+            total += b
+            for row in range(b):
+                a, c = set(i1[row].tolist()), set(ti[row].tolist())
+                # ids differ only where the boundary score ties
+                boundary = float(ts[row, -1])
+                same += int(a == c or all(
+                    abs(float(s1[row, j]) - boundary) <= 1e-5
+                    for j in range(TOPK) if int(i1[row, j]) not in c))
+    ivf["saved_pq"] = {"rows_equal_but_ties": [same, total],
+                       "disk_bytes": dir_bytes(os.path.join(sh, "ivf_pq"))}
+    log(f"  ivf pq saved by the two ranks ({ivf['saved_pq']['disk_bytes']} "
+        f"bytes), loaded in one process: ids equal but ties in {same} of "
+        f"{total} rows")
+    del back
+    torch.cuda.empty_cache()
+    if same != total:
+        raise AssertionError(f"saved pq: {same} of {total} rows")
+    out["ivf"] = ivf
+
+    # (iv) extract_towers and recall_mrr on (i)'s checkpoint
+    t3 = time.perf_counter()
+    ckpt = os.path.join(sh, "ck", "rag-fsdp")
+    written = extract_towers.main([ckpt, os.path.join(sh, "extracted"),
+                                   "--device", str(dev)])
+    state = load_checkpoint(ckpt)
+    with open(os.path.join(sh, "extracted", "generator.pkl"), "rb") as f:
+        import pickle
+
+        merged = lm_params_from_numpy(pickle.load(f), dev)
+    base = lm_params_from_numpy(state["params"]["generator"], dev)
+    lora = lora_params_from_numpy(state["params"]["lora"], dev)
+    del state
+    gcfg = LMConfig(vocab_size=base["embed"].shape[0], dtype=torch.float32,
+                    **model_io.LM_PRESETS[MODEL_SIZE])
+    cpu = torch.Generator().manual_seed(SEED + 28)
+    ids = torch.randint(0, gcfg.vocab_size, (2, 32), generator=cpu).to(dev)
+    mask = torch.ones_like(ids)
+    with torch.no_grad():
+        want = lm_logits(lora_apply(base, lora, LoRAConfig(8, 16.0)), gcfg,
+                         ids, mask)
+        got_l = lm_logits(merged, gcfg, ids, mask)
+    err = float((got_l - want).abs().max() / want.abs().max())
+    del merged, base, lora, want, got_l
+    torch.cuda.empty_cache()
+    # each question is the first six words of a text passage
+    # (``write_questions``): that passage is its gold
+    source = {}
+    with open(p8["passages"]) as f:
+        for _, line in zip(range(N_TEXT), f):
+            row = json.loads(line)
+            source[" ".join(row["text"].split()[:6])] = row["id"]
+    gold = os.path.join(sh, "gold.jsonl")
+    with open(gold, "w") as f:
+        for line in two:
+            qtext = json.loads(line)["question"]
+            f.write(json.dumps({"question": qtext,
+                                "gold_doc": source[qtext]}) + "\n")
+    preds = os.path.join(sh, "predictions.jsonl")
+    with open(preds, "w") as f:
+        for r in (0, 1):
+            with open(os.path.join(sh, f"retrieved_fsdp{r}.json")) as g:
+                for qtext, pids in json.load(g)[0].items():
+                    f.write(json.dumps({"query": qtext, "passages": [
+                        {"id": str(i)} for i in pids]}) + "\n")
+    rm = recall_mrr.main([gold, preds])
+    out["export"] = {"files": [os.path.basename(p) for p in written],
+                     "logits_max_rel_err": err, "bound": EXPORT_RTOL,
+                     "recall_mrr": rm, "s": time.perf_counter() - t3}
+    log(f"  extract_towers: {', '.join(out['export']['files'])}; the merged "
+        f"generator's logits against lora_apply's: max rel err {err:.2e} "
+        f"(bound {EXPORT_RTOL}); recall_mrr {json.dumps(rm)}")
+    if err > EXPORT_RTOL or rm["n"] != 2:
+        raise AssertionError(f"A16: {out['export']}")
+    out["b3_launches"] = {part: [g[part]["b3_launches"] for g in got]
+                          for part in ("fsdp", "tp")}
+    out["b3_max_abs_err"] = max(g["fsdp"]["b3_max_abs_err"] for g in got)
+    shutil.rmtree(sh, ignore_errors=True)
+    out["s"] = time.perf_counter() - t0
+    log(f"  phase 28: {out['s']:.1f} s (the two ranks {ranks_s:.1f} s)")
+    return out
+
+
+def shard_worker(cfg_path: str) -> None:
+    """One rank of phase 28 (run by ``shard_phase`` under ``torchrun``'s
+    environment): the FSDP and tensor-parallel rag runs through the train
+    entry point, then the sharded IVF index; writes ``rank<r>.json`` and
+    the retrieved passages for the parent."""
+    import torch
+
+    from jsa_rag_tpu_torch.device import exact_f32_matmul
+    from jsa_rag_tpu_torch.index.ivf import ShardedIVFIndex, auto_n_lists
+    from jsa_rag_tpu_torch.ops import mips
+    from jsa_rag_tpu_torch.ops import mips_topt as mt
+    from jsa_rag_tpu_torch.parallel import mesh
+    from jsa_rag_tpu_torch.train import __main__ as train_cli
+    from jsa_rag_tpu_torch.train import rag_model
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    globals().update(cfg["sizes"])
+    sh, pair = cfg["sh"], cfg["pair"]
+    dev = mesh.init_processes(cfg["device"], backend="gloo",
+                              timeout_s=SHARD_TIMEOUT_S)
+    exact_f32_matmul()
+    r = mesh.process_index()
+    if dev.type == "cuda":
+        mt._kernel_libs()
+    else:  # a rehearsal on the CPU at a small size
+        torch.cuda.synchronize = lambda *a, **k: None
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    from jsa_rag_tpu_torch import model_io
+
+    layers = model_io.LM_PRESETS["large"]["layers"]
+    out = {}
+    for part in ("fsdp", "tp"):
+        steps = []
+        with rag_pair_setup(os.path.join(pair, "vocab.json"), layers), \
+                recording(rag_model.RAGModel, "retrieve") as retrieved, \
+                recording(mips, "mips_topk_dense_t", 1) as dense, \
+                sharded_step_records(torch, dev, steps,
+                                     sh if r == 0 else None, part):
+            mt.scan_topt_dense.launches = 0  # main path starts
+            train_cli.main(cfg[f"{part}_argv"])
+            b3 = mt.scan_topt_dense.launches  # main path ends
+        with open(os.path.join(sh, f"retrieved_{part}{r}.json"), "w") as f:
+            json.dump([{q: ids.tolist() for q, ids in zip(args[3], o[0])}
+                       for args, _, o in retrieved], f)
+        rec = {"steps": steps, "b3_launches": b3}
+        if part == "fsdp":
+            rec["b3_max_abs_err"] = (
+                compare_served(mt, dense[0], "B3 on this rank's first scan:")
+                if dense or dev.type == "cuda" else 0.0)
+        if r == 0:
+            name = cfg[f"{part}_argv"][cfg[f"{part}_argv"].index("--name")
+                                       + 1]
+            rec["losses"] = [m["loss/train_loss"] for m in metric_lines(
+                os.path.join(sh, "ck", name, "metrics.jsonl"))]
+        out[part] = rec
+        del retrieved, dense
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        log(f"{part}: B3 launches {b3}, steps {len(steps)}")
+
+    # (iii) the IVF index sharded over the two ranks, from this rank's rows
+    ref = torch.load(os.path.join(pair, "ref.pt"))
+    n_lists = auto_n_lists(N_INDEX)
+    out["ivf"] = {}
+    for name in ("dense", "pq+refine", "pq"):
+        idx = ShardedIVFIndex(N_INDEX, DIM, "bfloat16", device=dev,
+                              n_lists=n_lists,
+                              storage="dense" if name == "dense" else "pq",
+                              code_size=SHARD_IVF_CODE,
+                              refine=name == "pq+refine")
+        lo, n = idx.row_offset, idx.local_rows
+        for s in range(lo // PAIR_CHUNK * PAIR_CHUNK, lo + n, PAIR_CHUNK):
+            t = min(s + PAIR_CHUNK, N_INDEX)
+            idx.set_embeddings(s, pair_rows(torch, s, t, dev))
+        idx.finalize()
+        cell = {"build_s": idx.build_s, "ids": {}, "scores": {}, "ms": {}}
+        for b in SHARD_IVF_BATCHES:
+            mine = ref["q"][:b][:b // 2] if r == 0 else ref["q"][:b][b // 2:]
+            mine = mine.to(dev)
+            for p in SHARD_IVF_PROBES:
+                idx.search(mine, TOPK, n_probe=p)  # warm
+                sync()
+                t0 = time.perf_counter()
+                s_, i_ = idx.search(mine, TOPK, n_probe=p)
+                sync()
+                key = f"{b}/{p}"
+                cell["ms"][key] = (time.perf_counter() - t0) * 1e3
+                cell["ids"][key] = i_.cpu().tolist()
+                cell["scores"][key] = s_.cpu().tolist()
+        if name == "pq":
+            idx.save(os.path.join(sh, "ivf_pq"))
+            mesh.barrier()
+        out["ivf"][name] = cell
+        log(f"ivf {name}: build " + ", ".join(
+            f"{k} {v:.2f}" for k, v in idx.build_s.items()) + " s")
+        del idx
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    with open(os.path.join(sh, f"rank{r}.json"), "w") as f:
+        json.dump(out, f)
+    mesh.shutdown_processes()
+
+
 def row_kernels(bp: dict, errs: dict) -> list:
     """B6's-B9's entries of the kernels line from phases 19 and 20, each
     beside the bench line that drove it."""
@@ -4922,6 +5458,9 @@ def main() -> None:
         torch.cuda.empty_cache()
         pair = pair_phase(torch, mt, dev, work, p8)
         phase_done("27")
+        torch.cuda.empty_cache()
+        shard = shard_phase(torch, mt, dev, work, p8)
+        phase_done("28")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # this slice's launches: B1 on each rank's shard (phase 27), B2 in the
@@ -4938,9 +5477,15 @@ def main() -> None:
         **{f"two_rank_evaluate_rank{r}": n
            for r, n in enumerate(pair["b3_launches_eval"])},
         **{f"two_rank_rag_rank{r}": n
-           for r, n in enumerate(pair["b3_launches_rag"])}}
+           for r, n in enumerate(pair["b3_launches_rag"])},
+        **{f"two_rank_{part}_rag_rank{r}": n
+           for part, counts in shard["b3_launches"].items()
+           for r, n in enumerate(counts)}}
     b3["launches"] = sum(b3["launches_by_path"].values())
-    b3["max_abs_err"] = max(b3["max_abs_err"], pair["b3_max_abs_err"])
+    b3["max_abs_err"] = max(b3["max_abs_err"], pair["b3_max_abs_err"],
+                            shard["b3_max_abs_err"])
+    b3["sharded"] = {k: shard[k] for k in ("fsdp", "tp", "ivf", "export",
+                                           "ranks_s", "s")}
     b3["two_ranks"] = {k: pair[k] for k in ("index", "search_ms",
                                             "merge_ms", "evaluate", "rag")}
     b2["one_rank_nccl"] = nccl

@@ -1,15 +1,14 @@
 """Index construction and loading (counterpart of
 ``jsa_rag_tpu/index/__init__.py``): the flat index in every storage and the
 IVF index (dense, sq8, pq; the reference's FAISS ivfflat / ivfsq / ivfpq /
-pq modes). The flat index shards over the processes of the grid; the
-sharded IVF index is ROADMAP queue A item 13b."""
+pq modes). Both shard over the processes of the grid: the flat index its
+rows, the IVF index its lists."""
 
 from __future__ import annotations
 
 import json
 import os
 
-from ..parallel.mesh import process_count
 from .flat import ShardedFlatIndex
 from .ivf import ShardedIVFIndex
 
@@ -27,13 +26,6 @@ def check_refine_gather(refine_gather: str) -> None:
             f"{refine_gather!r}")
 
 
-def _one_shard_ivf(grid) -> None:
-    if (grid.world if grid is not None else process_count()) > 1:
-        raise NotImplementedError(
-            "the IVF index over several processes (its assignment allgather "
-            "and merge) is ROADMAP queue A item 13b; use the flat index")
-
-
 def build_index_for(opt, n_passages: int, dim: int, device="cuda",
                     grid=None):
     """Construct the index an options object asks for (``index_mode``,
@@ -44,7 +36,7 @@ def build_index_for(opt, n_passages: int, dim: int, device="cuda",
     dense; ivfsq -> IVF sq8; ivfpq -> IVF pq of ``faiss_code_size`` bytes a
     row; pq -> pq with one list, fully probed. ``refine_gather`` is checked
     as the JAX package checks it and has no other effect. Any other mode is
-    flat, as in the JAX package. The flat index shards over ``grid`` (the
+    flat, as in the JAX package. The index shards over ``grid`` (the
     processes' grid; None: every process)."""
     mode, storage = opt.index_mode, "dense"
     ftype = opt.faiss_index_type if mode == "faiss" else None
@@ -53,7 +45,6 @@ def build_index_for(opt, n_passages: int, dim: int, device="cuda",
             raise ValueError(f"unknown faiss_index_type {ftype!r}")
         mode, storage = "ivf", FAISS_STORAGE[ftype]
     if mode == "ivf":
-        _one_shard_ivf(grid)
         n_lists, n_probe = opt.ivf_n_lists or None, opt.ivf_n_probe or None
         if ftype == "pq":  # flat PQ: one list, scanned whole
             n_lists = n_probe = 1
@@ -61,7 +52,7 @@ def build_index_for(opt, n_passages: int, dim: int, device="cuda",
                               device=device, n_lists=n_lists,
                               n_probe=n_probe, storage=storage,
                               code_size=opt.faiss_code_size,
-                              refine=opt.ivf_refine)
+                              refine=opt.ivf_refine, grid=grid)
     else:
         check_refine_gather(opt.refine_gather)
         idx = ShardedFlatIndex(n_passages, dim, dtype=opt.index_dtype,
@@ -79,13 +70,12 @@ def load_index(path: str, device="cuda", method: str = "auto",
     ``expected_dim`` validates against the live retriever's hidden size;
     ``refine_r`` overrides the rescore-pool width so a loaded index searches
     with the same pool as a freshly built one; ``refine_gather`` is checked
-    for a flat index as the JAX package checks it. A flat index loads
+    for a flat index as the JAX package checks it. The index loads
     sharded over ``grid`` (None: every process)."""
     with open(os.path.join(path, "meta.json")) as f:
         kind = json.load(f).get("kind", "flat")
     if kind == "ivf":
-        _one_shard_ivf(grid)
-        index = ShardedIVFIndex.load(path, device=device)
+        index = ShardedIVFIndex.load(path, device=device, grid=grid)
     elif kind == "flat":
         check_refine_gather(refine_gather)
         index = ShardedFlatIndex.load(path, device=device, method=method,

@@ -88,7 +88,10 @@ def build_index(
             batches.append((b_ids, b_mask))
         return start, stop, batches, inv
 
-    with ThreadPoolExecutor(max_workers=2) as ex:
+    # one worker: the windows are tokenised in corpus order, so a growable
+    # vocabulary (SimpleTokenizer numbers a word when it first meets it)
+    # gives every run the same ids; two workers raced on it
+    with ThreadPoolExecutor(max_workers=1) as ex:
         futures = [ex.submit(tokenize_window, span)
                    for span in spans[:prefetch]]
         next_submit = prefetch

@@ -50,6 +50,9 @@ from typing import NamedTuple
 import torch
 import torch.utils.checkpoint
 
+from ..parallel.sharding import (copy_to_group, gather_last_dim,
+                                 reduce_from_group)
+from ..parallel import mesh
 from .bert import _layer_norm, dropout, split_seeds
 
 IGNORE_INDEX = -100  # label mask value, same constant as the reference
@@ -82,6 +85,46 @@ class LMConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden // self.heads
+
+    @property
+    def local_heads(self) -> tuple[int, int]:
+        """(query heads, kv heads) of this rank's attention (gpt2: full
+        MHA, its fused qkv never split)."""
+        if self.arch == "gpt2":
+            return self.heads, self.heads
+        tp = _tp(self, "attn")
+        if tp is not None:
+            return self.heads // tp.size, self.kv_heads // tp.size
+        return self.heads, self.kv_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallelLMConfig(LMConfig):
+    """An ``LMConfig`` whose params are this rank's shards under tensor
+    parallelism over a group; ``tp`` their layout
+    (``parallel/sharding.TensorParallel``)."""
+
+    tp: object = None
+
+
+def with_tensor_parallel(cfg: LMConfig, tp) -> TensorParallelLMConfig:
+    """``cfg`` for this rank's shards of the params, laid out as ``tp``."""
+    return TensorParallelLMConfig(
+        **{f.name: getattr(cfg, f.name)
+           for f in dataclasses.fields(LMConfig)}, tp=tp)
+
+
+def _tp(cfg: LMConfig, part: str):
+    """The tensor-parallel layout when ``part`` ("attn", "mlp", "vocab") is
+    split on this rank, else None."""
+    tp = getattr(cfg, "tp", None)
+    return tp if tp is not None and getattr(tp, part) else None
+
+
+def _row_out(y, tp):
+    """A row-split projection's output: the sum of the ranks' partial
+    products, taken in f32 and cast once (Megatron's g)."""
+    return y if tp is None else reduce_from_group(y, tp.group)
 
 
 def _check_arch(cfg: LMConfig) -> None:
@@ -197,7 +240,10 @@ def _attention(layer, cfg: LMConfig, x, positions, bias, cache=None,
     updated copy; in place saves a cache's worth of memory per step) and the
     queries attend over the whole window, ``bias`` masking the rest."""
     b, s, _ = x.shape
-    nh, nkv, hd = cfg.heads, cfg.kv_heads, cfg.head_dim
+    (nh, nkv), hd = cfg.local_heads, cfg.head_dim
+    tp = _tp(cfg, "attn")
+    if tp is not None:
+        x = copy_to_group(x, tp.group)
     q = (x @ layer["q_w"]).reshape(b, s, nh, hd)
     k = (x @ layer["k_w"]).reshape(b, s, nkv, hd)
     v = (x @ layer["v_w"]).reshape(b, s, nkv, hd)
@@ -218,13 +264,15 @@ def _attention(layer, cfg: LMConfig, x, positions, bias, cache=None,
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     probs = dropout(probs, cfg.dropout, seed)
     ctx = torch.einsum("bgrqk,bkgd->bqgrd", probs, v).reshape(b, s, nh * hd)
-    return ctx @ layer["o_w"]
+    return _row_out(ctx @ layer["o_w"], tp)
 
 
-def _mlp(layer, x):
+def _mlp(layer, x, tp=None):
+    if tp is not None:
+        x = copy_to_group(x, tp.group)
     g = x @ layer["gate_w"]
     u = x @ layer["up_w"]
-    return (torch.nn.functional.silu(g) * u) @ layer["down_w"]
+    return _row_out((torch.nn.functional.silu(g) * u) @ layer["down_w"], tp)
 
 
 def _block(layer, cfg: LMConfig, x, positions, bias, cache=None,
@@ -232,7 +280,19 @@ def _block(layer, cfg: LMConfig, x, positions, bias, cache=None,
     x = x + _attention(layer, cfg, _rms_norm(x, layer["attn_norm"],
                                              cfg.rms_eps),
                        positions, bias, cache, cache_len, seed)
-    return x + _mlp(layer, _rms_norm(x, layer["mlp_norm"], cfg.rms_eps))
+    return x + _mlp(layer, _rms_norm(x, layer["mlp_norm"], cfg.rms_eps),
+                    _tp(cfg, "mlp"))
+
+
+def _gpt2_out(layer, cfg: LMConfig, ctx):
+    """gpt2's output projection; under tensor parallelism its rows are
+    split (its qkv is not), so each rank multiplies its columns of the
+    full context."""
+    tp = _tp(cfg, "attn")
+    if tp is not None:
+        n = layer["o_w"].shape[0]
+        ctx = copy_to_group(ctx, tp.group)[..., tp.rank * n:(tp.rank + 1) * n]
+    return _row_out(ctx @ layer["o_w"], tp) + layer["o_b"]
 
 
 def _gpt2_attention(layer, cfg: LMConfig, x, bias, cache=None,
@@ -253,7 +313,7 @@ def _gpt2_attention(layer, cfg: LMConfig, x, bias, cache=None,
     probs = torch.softmax(logits + bias, dim=-1).to(x.dtype)
     probs = dropout(probs, cfg.dropout, seed)
     ctx = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(b, s, h)
-    return ctx @ layer["o_w"] + layer["o_b"]
+    return _gpt2_out(layer, cfg, ctx)
 
 
 def _gpt2_block(layer, cfg: LMConfig, x, bias, cache=None,
@@ -277,7 +337,15 @@ def _gpt2_mlp(layer, x):
 def _embed_in(p: dict, cfg: LMConfig, input_ids, positions):
     """Token embeddings in ``cfg.dtype``; gpt2 adds its learned position
     rows, the positions clipped into the table (``lm.py:246-251``)."""
-    x = p["embed"][input_ids.long()]
+    tp = _tp(cfg, "vocab")
+    if tp is None:
+        x = p["embed"][input_ids.long()]
+    else:  # this rank's vocab rows, the others' zero, summed over ranks
+        n = p["embed"].shape[0]
+        local = input_ids.long() - tp.rank * n
+        own = (local >= 0) & (local < n)
+        x = p["embed"][torch.where(own, local, 0)]
+        x = reduce_from_group(torch.where(own[..., None], x, 0), tp.group)
     if cfg.arch == "gpt2":
         pos = positions.long().clamp(0, cfg.max_positions - 1)
         x = x + p["pos_embed"][pos]
@@ -294,9 +362,42 @@ def _final_norm(p: dict, cfg: LMConfig, x):
 def _unembed(p: dict, cfg: LMConfig, x):
     """f32 logits of the final-normed hidden states: the activation-dtype
     products are exact in f32 and summed there (the JAX package's
-    ``preferred_element_type=f32``)."""
-    x = _final_norm(p, cfg, x)
-    return x.to(torch.float32) @ p["head"]
+    ``preferred_element_type=f32``). Under a split vocab: this rank's
+    columns of them."""
+    x = _final_norm(p, cfg, x).to(torch.float32)
+    tp = _tp(cfg, "vocab")
+    if tp is not None:
+        x = copy_to_group(x, tp.group)
+    return x @ p["head"]
+
+
+def _full_vocab(cfg: LMConfig, logits):
+    """Logits over the whole vocabulary: a split vocab's columns gathered
+    over the group."""
+    tp = _tp(cfg, "vocab")
+    return logits if tp is None else gather_last_dim(logits, tp.group,
+                                                     tp.rank)
+
+
+def token_logprobs(cfg: LMConfig, logits, targets):
+    """log softmax(logits)[target] over the vocabulary, (..., V) ->
+    (...). Under a split vocab it is computed without gathering the
+    logits: the max and the sum of exps are all-reduced over the group,
+    and the target's logit comes from the rank that owns it."""
+    tp = _tp(cfg, "vocab")
+    if tp is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        return torch.gather(logp, -1, targets[..., None])[..., 0]
+    n = logits.shape[-1]
+    top = logits.detach().amax(dim=-1)
+    mesh.all_reduce_(top, torch.distributed.ReduceOp.MAX, group=tp.group)
+    z = logits - top[..., None]
+    sumexp = reduce_from_group(torch.exp(z).sum(dim=-1), tp.group)
+    local = targets - tp.rank * n
+    own = (local >= 0) & (local < n)
+    zt = torch.gather(z, -1, torch.where(own, local, 0)[..., None])[..., 0]
+    zt = reduce_from_group(torch.where(own, zt, 0.0), tp.group)
+    return zt - torch.log(sumexp)
 
 
 def _layer_fn(cfg: LMConfig):
@@ -313,10 +414,9 @@ def _layer_fn(cfg: LMConfig):
     return block, 1
 
 
-def lm_logits(params: dict, cfg: LMConfig, input_ids, attention_mask,
-              positions=None, rng=None) -> torch.Tensor:
-    """(B, S) -> (B, S, V) f32 logits. Causal + padding mask; ``rng`` (a
-    CPU generator) turns on train-time dropout."""
+def _local_logits(params: dict, cfg: LMConfig, input_ids, attention_mask,
+                  positions=None, rng=None) -> torch.Tensor:
+    """``lm_logits`` before the vocab gather."""
     _check_arch(cfg)
     p = _cast_params(params, cfg)
     s = input_ids.shape[1]
@@ -345,6 +445,16 @@ def lm_logits(params: dict, cfg: LMConfig, input_ids, attention_mask,
     return _unembed(p, cfg, x)
 
 
+def lm_logits(params: dict, cfg: LMConfig, input_ids, attention_mask,
+              positions=None, rng=None) -> torch.Tensor:
+    """(B, S) -> (B, S, V) f32 logits. Causal + padding mask; ``rng`` (a
+    CPU generator) turns on train-time dropout. Under a split vocab the
+    ranks' columns are gathered (for decoding and choice scoring; the
+    losses never gather them)."""
+    return _full_vocab(cfg, _local_logits(params, cfg, input_ids,
+                                          attention_mask, positions, rng))
+
+
 def lm_loss(params: dict, cfg: LMConfig, input_ids, attention_mask, labels,
             *, length_normalized: bool = True, logit_temp: float = 1.0,
             rng=None):
@@ -352,7 +462,7 @@ def lm_loss(params: dict, cfg: LMConfig, input_ids, attention_mask, labels,
     loss (B,), summed NLL (B,)); length-normalised like the reference's
     per-sequence CE (src/rag.py:1338-1366). ``logit_temp`` divides the
     logits before CE (``temperature_gold``, src/rag.py:1349)."""
-    logits = lm_logits(params, cfg, input_ids, attention_mask, rng=rng)
+    logits = _local_logits(params, cfg, input_ids, attention_mask, rng=rng)
     if logit_temp != 1.0:
         logits = logits / logit_temp
     # next-token prediction: logits[t] predicts token t+1
@@ -360,9 +470,7 @@ def lm_loss(params: dict, cfg: LMConfig, input_ids, attention_mask, labels,
     targets = labels[:, 1:].long()
     valid = targets != IGNORE_INDEX
     safe = torch.where(valid, targets, 0)
-    logp = torch.log_softmax(logits, dim=-1)
-    tok_logp = torch.gather(logp, -1, safe[..., None])[..., 0]
-    tok_logp = torch.where(valid, tok_logp, 0.0)
+    tok_logp = torch.where(valid, token_logprobs(cfg, logits, safe), 0.0)
     n_tok = valid.sum(dim=1).clamp_min(1)
     sum_nll = -tok_logp.sum(dim=1)
     if length_normalized:
@@ -383,7 +491,7 @@ def lm_sequence_logprob(params, cfg, input_ids, attention_mask, labels,
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device):
     hd = cfg.head_dim
     # gpt2 attention is full MHA: its cache holds cfg.heads kv heads
-    nkv = cfg.heads if cfg.arch == "gpt2" else cfg.kv_heads
+    nkv = cfg.local_heads[1]
     return [(torch.zeros((batch, max_len, nkv, hd), dtype=cfg.dtype,
                          device=device),
              torch.zeros((batch, max_len, nkv, hd), dtype=cfg.dtype,
@@ -410,7 +518,7 @@ def _forward_with_cache(p, cfg, input_ids, attention_mask, positions,
     block, per = _layer_fn(cfg)
     for layer, lc in zip(p["layers"], cache):
         x = block(layer, x, positions, bias, lc, cache_len, (None,) * per)
-    return _unembed(p, cfg, x[:, -1])
+    return _full_vocab(cfg, _unembed(p, cfg, x[:, -1]))
 
 
 def _apply_forced_prefix(choice, t: int, forced_prefix, forced_len):
@@ -573,7 +681,9 @@ def _beam_decode_forward(p, cfg: LMConfig, tok, positions, prompt_cache,
     row's prompt cache and slots [0, t]. -> (B*K, V) f32 logits."""
     x = _embed_in(p, cfg, tok, positions)
     bk = x.shape[0]
-    b, nh, hd = bk // kb, cfg.heads, cfg.head_dim
+    (nh, nkv), hd = cfg.local_heads, cfg.head_dim
+    b = bk // kb
+    tp = _tp(cfg, "attn")
     if cfg.arch != "gpt2":  # every layer rotates at the same positions
         angles = _rope_angles(positions, hd // 2, cfg.rope_theta)
     for layer, pkv, (gk, gv) in zip(p["layers"], prompt_cache, gen_cache):
@@ -585,11 +695,12 @@ def _beam_decode_forward(p, cfg: LMConfig, tok, positions, prompt_cache,
             gk[t], gv[t] = k, v
             ctx = _beam_attend(q.reshape(b, kb, nh, 1, hd), pkv, gk, gv,
                                prompt_bias, t, x.dtype)
-            x = x + (ctx @ layer["o_w"] + layer["o_b"])
+            x = x + _gpt2_out(layer, cfg, ctx)
             x = x + _gpt2_mlp(layer, x)
             continue
-        nkv = cfg.kv_heads
         h = _rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+        if tp is not None:
+            h = copy_to_group(h, tp.group)
         q = _rope((h @ layer["q_w"]).reshape(bk, 1, nh, hd), positions,
                   cfg.rope_theta, angles)
         k = _rope((h @ layer["k_w"]).reshape(bk, 1, nkv, hd), positions,
@@ -597,9 +708,10 @@ def _beam_decode_forward(p, cfg: LMConfig, tok, positions, prompt_cache,
         gk[t], gv[t] = k[:, 0], (h @ layer["v_w"]).reshape(bk, nkv, hd)
         ctx = _beam_attend(q.reshape(b, kb, nkv, nh // nkv, hd), pkv, gk,
                            gv, prompt_bias, t, x.dtype)
-        x = x + ctx @ layer["o_w"]
-        x = x + _mlp(layer, _rms_norm(x, layer["mlp_norm"], cfg.rms_eps))
-    return _unembed(p, cfg, x[:, -1])
+        x = x + _row_out(ctx @ layer["o_w"], tp)
+        x = x + _mlp(layer, _rms_norm(x, layer["mlp_norm"], cfg.rms_eps),
+                     _tp(cfg, "mlp"))
+    return _full_vocab(cfg, _unembed(p, cfg, x[:, -1]))
 
 
 def _beam_search(p, cfg: LMConfig, input_ids, attention_mask, *,
@@ -626,8 +738,7 @@ def _beam_search(p, cfg: LMConfig, input_ids, attention_mask, *,
     next_pos = positions[:, -1] + 1
     # the generation cache, time-major (T, B*K, kv, hd) a layer, and a
     # second one that each step's reorder gathers into (then the two swap)
-    nkv = cfg.heads if cfg.arch == "gpt2" else cfg.kv_heads
-    shape = (t_max, b * kb, nkv, cfg.head_dim)
+    shape = (t_max, b * kb, cfg.local_heads[1], cfg.head_dim)
 
     def caches():
         return [(torch.zeros(shape, dtype=cfg.dtype, device=dev),

@@ -46,25 +46,45 @@ def lora_init(params: dict, cfg: LoRAConfig, *, generator: torch.Generator,
     return tree
 
 
-def lora_apply(params: dict, lora: dict, cfg: LoRAConfig) -> dict:
+def lora_apply(params: dict, lora: dict, cfg: LoRAConfig, *,
+               train_base: bool = False, tp=None) -> dict:
     """Effective params: W + (alpha/rank) (A @ B) at the targeted leaves,
-    the delta cast to W's dtype; every base leaf detached, not copied."""
+    the delta cast to W's dtype; every base leaf detached, not copied,
+    unless ``train_base``. Under tensor parallelism (``tp``, the
+    generator's ``TensorParallel``) a split leaf takes its rank's part of
+    the delta: B's columns for a column-split W, A's rows for a row-split
+    one (the adapters' gradients are then partial sums over the group)."""
     scale = cfg.alpha / cfg.rank
-    merged = {k: v.detach() for k, v in params.items() if k != "layers"}
+    keep = (lambda v: v) if train_base else (lambda v: v.detach())
+    merged = {k: keep(v) for k, v in params.items() if k != "layers"}
     merged["layers"] = []
     for layer, entry in zip(params["layers"], lora["layers"]):
-        out = {k: v.detach() for k, v in layer.items()}
+        out = {k: keep(v) for k, v in layer.items()}
         for name, ab in entry.items():
             w = out[name]
-            out[name] = w + ((ab["A"] @ ab["B"]) * scale).to(w.dtype)
+            a, b = ab["A"], ab["B"]
+            if tp is not None and b.shape[1] != w.shape[1]:
+                n = w.shape[1]
+                b = b[:, tp.rank * n:(tp.rank + 1) * n]
+            if tp is not None and a.shape[0] != w.shape[0]:
+                n = w.shape[0]
+                a = a[tp.rank * n:(tp.rank + 1) * n]
+            out[name] = w + ((a @ b) * scale).to(w.dtype)
         merged["layers"].append(out)
     return merged
 
 
-def gen_params(params: dict, lora_cfg: LoRAConfig | None) -> dict:
+def lora_merge_export(params: dict, lora: dict, cfg: LoRAConfig) -> dict:
+    """The adapters folded into the base for export (``lora.py:85-87``):
+    ``lora_apply`` with ``train_base``."""
+    return lora_apply(params, lora, cfg, train_base=True)
+
+
+def gen_params(params: dict, lora_cfg: LoRAConfig | None, tp=None) -> dict:
     """The generator weights a forward uses: the LoRA-merged tree when an
     adapter is configured and present, else the base (``ApplyFns.gen_params``,
-    ``train/modes.py:65-69``)."""
+    ``train/modes.py:65-69``); ``tp`` as ``lora_apply`` takes it."""
     if lora_cfg is not None and "lora" in params:
-        return lora_apply(params["generator"], params["lora"], lora_cfg)
+        return lora_apply(params["generator"], params["lora"], lora_cfg,
+                          tp=tp)
     return params["generator"]

@@ -12,11 +12,20 @@ The products run in f32 (TF32 off on the card). Randomness comes from an
 explicit ``torch.Generator``; it cannot replay the JAX package's threefry
 streams, so ``lloyd`` takes the initial centroids (and, optionally, the
 split noise) from the caller.
+
+Over several processes (``group``) each rank holds a part of the rows:
+each iteration assigns the local rows to the replicated centroids and one
+``all_reduce`` adds the (C, d) sums and the (C,) counts, so every rank
+takes the same update. The init rows and the split noise are drawn by
+global row id from a generator every rank seeds alike, so the centroids are
+one process's up to the order of the f32 sums.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel import mesh
 
 
 def _l2n(x: torch.Tensor) -> torch.Tensor:
@@ -50,7 +59,7 @@ def assign(embeddings: torch.Tensor, centroids: torch.Tensor,
 def lloyd(embeddings: torch.Tensor, centroids: torch.Tensor, iters: int = 10,
           chunk: int = 65536, metric: str = "ip", spherical: bool = False,
           generator: torch.Generator | None = None,
-          noise: torch.Tensor | None = None):
+          noise: torch.Tensor | None = None, group=None):
     """``iters`` Lloyd iterations from ``centroids`` (C, d), then the final
     assignment. -> (centroids (C, d) f32, assignments (N,) int32).
 
@@ -59,7 +68,10 @@ def lloyd(embeddings: torch.Tensor, centroids: torch.Tensor, iters: int = 10,
     empty slot (in index order) copies the i-th most populated centroid
     plus ``1e-3·|c|·N(0,1)/√d`` (``noise[it]``, (C, d), when given; else
     drawn from ``generator``), so the pair splits that cluster next
-    iteration. ``spherical`` re-normalises the centroids each iteration."""
+    iteration. ``spherical`` re-normalises the centroids each iteration.
+    With a process ``group`` (``torch.distributed.group.WORLD`` for every
+    rank) the rows are this rank's and the sums and counts are added over
+    the group each iteration; None: these rows alone."""
     if metric not in ("ip", "l2"):
         raise ValueError(f"unknown k-means metric {metric!r}")
     n, d = embeddings.shape
@@ -80,6 +92,9 @@ def lloyd(embeddings: torch.Tensor, centroids: torch.Tensor, iters: int = 10,
             onehot.scatter_(1, a[:, None], 1.0)
             sums += onehot.T @ e
             counts += torch.bincount(a, minlength=n_clusters)
+        if group is not None:
+            mesh.all_reduce_(sums, group=group)
+            mesh.all_reduce_(counts, group=group)
         cnt = counts.to(torch.float32)
         new = torch.where(cnt[:, None] > 0,
                           sums / cnt.clamp_min(1.0)[:, None], c)
@@ -100,15 +115,19 @@ def lloyd(embeddings: torch.Tensor, centroids: torch.Tensor, iters: int = 10,
 
 def kmeans(embeddings: torch.Tensor, n_clusters: int, iters: int = 10,
            chunk: int = 65536, metric: str = "ip", spherical: bool = False,
-           generator: torch.Generator | None = None):
+           generator: torch.Generator | None = None, group=None,
+           n_total: int | None = None, row_offset: int = 0):
     """-> (centroids (C, d) f32, assignments (N,) int32).
 
     ``metric="ip"``: inner-product assignment (the index is MIPS);
     ``"l2"``: Euclidean (PQ codebooks, which minimise reconstruction
     error). The initial centroids are ``n_clusters`` distinct rows drawn
     by ``generator`` (a fresh one seeded with 0 on the rows' device when
-    None). ``spherical`` is opt-in, as in the JAX package."""
-    n = embeddings.shape[0]
+    None). ``spherical`` is opt-in, as in the JAX package. Over a process
+    ``group`` the rows are rows [``row_offset``, ``row_offset`` + N) of
+    ``n_total``: the init ids are drawn over ``n_total`` and each rank adds
+    the init rows it holds."""
+    n = embeddings.shape[0] if n_total is None else n_total
     if n < n_clusters:
         raise ValueError(
             f"kmeans: {n_clusters} clusters but only {n} points — use fewer "
@@ -118,6 +137,14 @@ def kmeans(embeddings: torch.Tensor, n_clusters: int, iters: int = 10,
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     init = torch.randperm(n, generator=generator, device=dev)[:n_clusters]
-    return lloyd(embeddings, embeddings[init].to(torch.float32), iters=iters,
-                 chunk=chunk, metric=metric, spherical=spherical,
-                 generator=generator)
+    if group is not None:
+        local = init - row_offset
+        mine = (local >= 0) & (local < embeddings.shape[0])
+        start = torch.zeros((n_clusters, embeddings.shape[1]),
+                            dtype=torch.float32, device=dev)
+        start[mine] = embeddings[local[mine]].to(torch.float32)
+        mesh.all_reduce_(start, group=group)
+    else:
+        start = embeddings[init].to(torch.float32)
+    return lloyd(embeddings, start, iters=iters, chunk=chunk, metric=metric,
+                 spherical=spherical, generator=generator, group=group)

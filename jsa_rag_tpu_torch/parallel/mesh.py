@@ -24,6 +24,13 @@ join over gloo; gloo takes the CUDA tensors of every collective used here
 2.11) and carries them through host memory itself. Scalars and host-side
 values travel as host tensors under gloo and as card tensors under NCCL
 (``comm_device``).
+
+Axis groups (``axis_groups``): the ranks that share an index coordinate
+form a *data group* (they hold the same FSDP or tensor-parallel shard and
+average its gradient), the ranks that share a data coordinate an *index
+group* (they split one generator under tensor parallelism). Every rank
+creates every group, in the same order, at its first call; each helper
+takes an optional ``group`` (None: every rank).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import warnings
 
 import torch
 import torch.distributed as dist
@@ -80,8 +88,13 @@ def training_grid(opt) -> Grid:
     """The training entry point's grid (``train.py:54-65``): under several
     processes ``--mesh_data 1`` becomes the process count (every rank a
     data-parallel worker, the reference's DDP); another value must be a
-    multiple of it; then ``make_grid`` with ``--mesh_index``."""
+    multiple of it; then ``make_grid`` with ``--mesh_index``. Under
+    ``--tensor_parallel`` with ``--mesh_index`` above 1 the index axis
+    spans processes (one device each here, where a JAX process holds
+    several): the grid is ``--mesh_data`` x ``--mesh_index`` as given."""
     n_data, pc = opt.mesh_data, process_count()
+    if opt.tensor_parallel and opt.mesh_index > 1:
+        return make_grid(n_data, opt.mesh_index)
     if pc > 1 and n_data % pc != 0:
         if n_data != 1:
             raise ValueError(f"--mesh_data {n_data} must be a multiple of "
@@ -128,6 +141,7 @@ def init_processes(device="cuda", backend: str | None = None,
     kw = {}
     if timeout_s is not None:
         kw["timeout"] = datetime.timedelta(seconds=timeout_s)
+        _GROUP_KW["timeout"] = kw["timeout"]
     if backend == "nccl":
         kw["device_id"] = dev
     dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
@@ -137,8 +151,42 @@ def init_processes(device="cuda", backend: str | None = None,
 
 def shutdown_processes() -> None:
     """Leave the process group (a no-op without one)."""
+    _GROUPS.clear()
+    _GROUP_KW.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+_GROUPS: dict = {}    # (n_data, n_index) -> this rank's (data, index) group
+_GROUP_KW: dict = {}  # the group's timeout, for the subgroups too
+
+
+def axis_groups(grid: Grid) -> tuple:
+    """This rank's (data group, index group) on ``grid``: the ranks
+    ``{d * n_index + index_rank}`` over d, and ``{data_rank * n_index +
+    j}`` over j, whose group ranks are then ``data_rank`` and
+    ``index_rank``. Collective at the first call for a grid shape (every
+    rank creates every group, in the same order); (None, None) without a
+    process group."""
+    if not distributed():
+        return None, None
+    key = (grid.n_data, grid.n_index)
+    if key not in _GROUPS:
+        if grid.world != process_count():
+            raise ValueError(f"grid of {grid.world} ranks in a group of "
+                             f"{process_count()}")
+        nd, ni = key
+        data = [dist.new_group([d * ni + j for d in range(nd)], **_GROUP_KW)
+                for j in range(ni)]
+        index = [dist.new_group([i * ni + j for j in range(ni)],
+                                **_GROUP_KW) for i in range(nd)]
+        _GROUPS[key] = (data[grid.index_rank], index[grid.data_rank])
+    return _GROUPS[key]
+
+
+def group_size(group=None) -> int:
+    """Ranks in ``group`` (None: every rank); 1 without a process group."""
+    return dist.get_world_size(group) if distributed() else 1
 
 
 def distributed() -> bool:
@@ -162,28 +210,84 @@ def comm_device() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """In-place all-reduce of ``t`` over every rank; returns ``t``."""
-    if distributed():
-        dist.all_reduce(t, op=op)
+def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM,
+                group=None) -> torch.Tensor:
+    """In-place all-reduce of ``t`` over ``group``; returns ``t``."""
+    if group_size(group) > 1:
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 
-def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """In-place broadcast of rank ``src``'s ``t``; returns ``t``."""
-    if distributed():
-        dist.broadcast(t, src=src)
+def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """In-place broadcast of global rank ``src``'s ``t`` over ``group``;
+    returns ``t``."""
+    if group_size(group) > 1:
+        dist.broadcast(t, src=src, group=group)
     return t
 
 
-def all_gather(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` (same shape on all) stacked: (W, *t.shape)."""
-    if not distributed():
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``t`` (same shape on all) stacked in group-rank
+    order: (W, *t.shape)."""
+    w = group_size(group)
+    if w == 1:
         return t[None]
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(process_count())]
-    dist.all_gather(parts, t)
+    parts = [torch.empty_like(t) for _ in range(w)]
+    dist.all_gather(parts, t, group=group)
     return torch.stack(parts)
+
+
+def reduce_scatter_(out: torch.Tensor, t: torch.Tensor,
+                    group=None) -> torch.Tensor:
+    """``out`` := group rank r's part of the sum over ``group`` of ``t``
+    (W * out.numel() elements, r's part the r-th run of out.numel());
+    returns ``out``."""
+    if group_size(group) == 1:
+        return out.copy_(t.reshape(out.shape))
+    with warnings.catch_warnings():  # renamed in later torch releases
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, t.contiguous(), group=group)
+    return out
+
+
+def exchange_rows(t: torch.Tensor, dest_counts: list, group=None
+                  ) -> torch.Tensor:
+    """Send the rows of ``t`` in order, the first ``dest_counts[0]`` to
+    group rank 0, the next ``dest_counts[1]`` to rank 1, ...; -> the rows
+    every rank sent here, source after source, on ``t``'s device. Any
+    dtype: each row travels as its bytes (through host memory under
+    gloo)."""
+    w = group_size(group)
+    if w == 1:
+        return t
+    dev = comm_device()
+    counts = all_gather(torch.tensor(list(dest_counts), dtype=torch.int64,
+                                     device=dev), group).cpu()
+    me = dist.get_rank(group)
+    recv = counts[:, me].tolist()
+    rows = t.reshape(t.shape[0], -1)
+    raw = rows.contiguous().view(torch.uint8).to(dev)
+    out = raw.new_empty((sum(recv), raw.shape[1]))
+    dist.all_to_all_single(out, raw, recv, list(dest_counts), group=group)
+    return out.to(t.device).view(t.dtype).reshape(-1, *t.shape[1:])
+
+
+def gather_to_root(t: torch.Tensor, root: int = 0):
+    """Every rank's ``t`` (same shape on all) stacked on rank ``root``
+    (W, *t.shape), through the collectives' device as bytes; None
+    elsewhere."""
+    if not distributed():
+        return t[None]
+    x = t.contiguous().reshape(max(t.shape[0], 1) if t.dim() else 1, -1)
+    raw = x.view(torch.uint8).to(comm_device())  # any dtype, as bytes
+    parts = ([torch.empty_like(raw) for _ in range(process_count())]
+             if process_index() == root else None)
+    dist.gather(raw, parts, dst=root)
+    if parts is None:
+        return None
+    return torch.stack(parts).to(t.device).view(t.dtype).reshape(
+        process_count(), *t.shape)
 
 
 def all_gather_ragged(t: torch.Tensor):

@@ -27,7 +27,15 @@ cuda`` means ``cuda:{LOCAL_RANK}``), builds the (data, index) grid
 (``--mesh_data 1`` becomes the process count, as ``train.py`` does; a grid
 that does not match raises ``make_mesh``'s error), shards the index over
 every rank and the data over the data axis, and averages the gradients
-(DDP). Logging is INFO on rank 0 and WARNING elsewhere.
+(DDP). ``--shard_optim`` splits the params and the optimizer state over the
+data axis (FSDP), ``--tensor_parallel`` the generator over the index axis
+(``train/step.py``), e.g. on one host of 4 cards:
+
+    torchrun --nproc_per_node 4 -m jsa_rag_tpu_torch.train ... \
+        --mesh_data 2 --mesh_index 2 --shard_optim true \
+        --tensor_parallel true
+
+Logging is INFO on rank 0 and WARNING elsewhere.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ from ..model_io import load_or_initialize_model
 from ..parallel import mesh
 from .loop import train
 from .optim import set_optim
-from .step import param_placement
+from .step import param_placement, place_params
 
 logger = logging.getLogger("train")
 
@@ -85,7 +93,8 @@ def main(argv=None) -> int:
     else:
         index = build_index_for(opt, len(store), hidden, device=opt.device,
                                 grid=grid)
-    tx = set_optim(opt, params, opt_state, step)
+    placement = place_params(opt, model, params, grid)
+    tx = set_optim(opt, params, opt_state, step, placement)
     del opt_state
     step = train(model, index, params, tx, opt, step=step,
                  evaluate_fn=evaluate, grid=grid)

@@ -11,6 +11,15 @@ rank 0 alone writes the metrics log, the step dumps and the checkpoints
 (``loop.py:66-70, 272, 362``). A SIGTERM or SIGUSR1 that reaches any rank
 stops every rank: an any-rank OR every step (``loop.py:337-345``).
 
+Under a sharded placement (``tx.placement``: ``--shard_optim``,
+``--tensor_parallel``) the caller has placed the params
+(``step.py::place_params``). Each step gathers the FSDP leaves before its
+retrieval and the step narrows them again after the backward; an
+evaluation, a retriever export or the initial index build gathers them
+around itself, and a checkpoint gathers every split leaf (the
+tensor-parallel generator too), on every rank, and rank 0 writes the full
+tree in the one-process format (``loop.py:318-330``).
+
 As in the JAX package, the step's loss and aux stay on the device and are
 drained to the host every 32 steps, at a log boundary, or when a
 ``training_info_step{N}.json`` dump (``--log_detail_num``) needs them, so
@@ -61,6 +70,7 @@ from .checkpoint import (export_retriever, save_checkpoint,
                          wait_for_local_writes, wait_for_writes)
 from .modes import StepRng
 from .optim import AdamW
+from ..parallel.sharding import DATA, INDEX
 from .step import (host_batch_rows, make_train_step, param_placement,
                    span_ms, sync_params)
 
@@ -134,14 +144,24 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                             os.path.join(checkpoint_path, "profile"),
                             model.device)
     completed = False
+    placement = tx.placement
+
+    def gathered(axes=(DATA,)):
+        """The split leaves over ``axes`` full inside the block."""
+        if placement is None:
+            return contextlib.nullcontext()
+        return placement.full(axes)
+
     try:
-        sync_params(tx.leaves)
+        if placement is None:
+            sync_params(tx.leaves)
         mode = train_mode_of(opt)
         first_step = step + 1
         uses_index = not opt.use_file_passages and not opt.closed_book
         if uses_index and opt.load_index_path is None:
             t0 = time.time()
-            model.build_index(index, params)
+            with gathered():
+                model.build_index(index, params)
             logger.info("Initial indexing time: %.3f min",
                         (time.time() - t0) / 60)
 
@@ -182,8 +202,14 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
         to_skip = step  # batches the restored steps already took
 
         def opt_state():
-            # only rank 0 writes, so only it copies the moments
-            return tx.state_dict() if opt.save_optimizer and rank0 else None
+            # only rank 0 writes; a split placement's moments are gathered
+            # on every rank
+            if not opt.save_optimizer:
+                return None
+            if placement is not None and placement.split:
+                state = tx.state_dict()
+                return state if rank0 else None
+            return tx.state_dict() if rank0 else None
 
         def drain_pending() -> float:
             nonlocal last_loss
@@ -223,6 +249,8 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                 step += 1
                 t_step = time.time()
                 profiler.at_step(step)
+                if placement is not None:  # FSDP: the full leaves a step
+                    placement.gather_((DATA,))
                 if uses_index and refresh.is_time_to_refresh(step):
                     # a just-loaded index already holds these weights' rows
                     if not (step == first_step
@@ -320,8 +348,9 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
 
                 if evaluate_fn is not None and step % opt.eval_freq == 0:
                     for data_path in opt.eval_data:
-                        metrics = evaluate_fn(model, index, params, opt,
-                                              data_path, step)
+                        with gathered():
+                            metrics = evaluate_fn(model, index, params, opt,
+                                                  data_path, step)
                         logger.info("Dataset: %s | %s",
                                     os.path.basename(data_path), " | ".join(
                                         f"{v:.3f} {k}"
@@ -330,21 +359,23 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                 if (opt.save_build_retriever_step
                         and step % opt.save_build_retriever_step == 0
                         and step % opt.save_freq != 0):
-                    export_retriever(checkpoint_path, step,
-                                     params["retriever"],
-                                     tokenizer=model.retriever_tokenizer,
-                                     block=False)
+                    with gathered():
+                        export_retriever(checkpoint_path, step,
+                                         params["retriever"],
+                                         tokenizer=model.retriever_tokenizer,
+                                         block=False)
                 if step % opt.save_freq == 0:
-                    export_retriever(checkpoint_path, step,
-                                     params["retriever"],
-                                     tokenizer=model.retriever_tokenizer,
-                                     block=False)
-                    save_checkpoint(opt.checkpoint_dir, opt.name, step,
-                                    params, opt_state=opt_state(),
-                                    options=opt,
-                                    tokenizer=model.generator_tokenizer,
-                                    retriever_tokenizer=model
-                                    .retriever_tokenizer, block=False)
+                    with gathered((DATA, INDEX)):
+                        export_retriever(checkpoint_path, step,
+                                         params["retriever"],
+                                         tokenizer=model.retriever_tokenizer,
+                                         block=False)
+                        save_checkpoint(opt.checkpoint_dir, opt.name, step,
+                                        params, opt_state=opt_state(),
+                                        options=opt,
+                                        tokenizer=model.generator_tokenizer,
+                                        retriever_tokenizer=model
+                                        .retriever_tokenizer, block=False)
 
                 stop_now = stop_requested["flag"]
                 if grid.world > 1:
@@ -354,11 +385,13 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                     drain_pending()
                     _flush_metrics(metrics_log, step, run_stats)
                     if step % opt.save_freq != 0:
-                        save_checkpoint(
-                            opt.checkpoint_dir, opt.name, step, params,
-                            opt_state=opt_state(), options=opt,
-                            tokenizer=model.generator_tokenizer,
-                            retriever_tokenizer=model.retriever_tokenizer)
+                        with gathered((DATA, INDEX)):
+                            save_checkpoint(
+                                opt.checkpoint_dir, opt.name, step, params,
+                                opt_state=opt_state(), options=opt,
+                                tokenizer=model.generator_tokenizer,
+                                retriever_tokenizer=model
+                                .retriever_tokenizer)
                     logger.info("preemption checkpoint saved at step %d",
                                 step)
                     completed = True

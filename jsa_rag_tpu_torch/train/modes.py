@@ -67,7 +67,8 @@ class ApplyFns:
     train_dropout: bool = False
 
     def gen_params(self, params):
-        return gen_params(params, self.lora_cfg)
+        return gen_params(params, self.lora_cfg,
+                          getattr(self.gen_cfg, "tp", None))
 
     def expand(self, params):
         """With ``decouple_encoder`` the posterior owns only a query tower

@@ -37,6 +37,15 @@ checkpoint written with ``--save_optimizer`` carries it as ``opt_state``
 and ``set_optim`` restores it. Without it (an older checkpoint, or one the
 JAX package wrote, whose optax state the port does not read) the count
 starts at the restored step's updates and the moments at zero.
+
+Sharded placement (``parallel/sharding.Placement``, ``--shard_optim`` /
+``--tensor_parallel``): the optimizer is built on the narrowed leaves, so
+mu and nu live on the shards; ``state_dict`` gathers them (collective: every
+rank calls it) into the full arrays, the format of a one-process run, and
+``load_state_dict`` narrows full arrays to the shards. The clip norm is then
+global: each rank sums the squares of its shards, a replicated leaf's (or a
+shard's that several ranks hold) counted on one rank of its group only, and
+one all-reduce adds them.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ import torch
 from torch import nn
 
 from ..config import Options
+from ..parallel import mesh, sharding
 from ..utils.schedulers import make_lr_schedule
 
 logger = logging.getLogger(__name__)
@@ -116,8 +126,9 @@ class AdamW:
     read as zero) and applies the update when an accumulation window
     closes; it returns whether it did."""
 
-    def __init__(self, opt: Options, params: dict):
+    def __init__(self, opt: Options, params: dict, placement=None):
         leaves = named_leaves(params)
+        self.placement = placement
         lora_active = opt.use_lora and "lora" in params
         self.paths = list(leaves)
         self.leaves = [leaves[p] for p in self.paths]
@@ -131,6 +142,7 @@ class AdamW:
             "retr": make_lr_schedule(opt.scheduler, opt.lr_retriever,
                                      opt.warmup_steps, total)}
         self.count = 0  # updates taken (optax's count, shared by groups)
+        self.norm = None
         self.k = max(1, opt.accumulation_steps)
         self.mini_step = 0
         self.mu = [_f32_zeros(t) if lab != "frozen" else None
@@ -144,6 +156,7 @@ class AdamW:
         and ``mu``/``nu`` for every trained leaf and ``acc`` for every leaf
         with a pending accumulation, each ``{tree path: array}``."""
         def host(ts):  # copies: the moments change in place
+            ts = self._gathered(ts)
             return {"/".join(p): t.detach().to("cpu", copy=True).numpy()
                     for p, t in zip(self.paths, ts) if t is not None}
 
@@ -152,6 +165,22 @@ class AdamW:
                 "accumulation_steps": int(self.k),
                 "mu": host(self.mu), "nu": host(self.nu),
                 "acc": host(self.acc) if self.acc is not None else {}}
+
+    def _gathered(self, ts: list) -> list:
+        """``ts`` (one tensor or None per leaf, the leaves' shapes) with
+        every split leaf's entry gathered to its full value (collective
+        under a split placement; the ranks agree on which entries exist)."""
+        pl = self.placement
+        if pl is None or not pl.split:
+            return ts
+        out = list(ts)
+        for axis in (sharding.DATA, sharding.INDEX):
+            idx = [i for i in pl.on(axis) if ts[i] is not None]
+            if idx:
+                for i, f in zip(idx, pl.gather_values([ts[i] for i in idx],
+                                                      idx)):
+                    out[i] = f
+        return out
 
     def load_state_dict(self, state: dict) -> None:
         """Restore ``state_dict``'s output onto this optimizer's leaves
@@ -176,13 +205,17 @@ class AdamW:
                     if name != "acc":
                         missing.append(key)
                     continue
-                if tuple(arr.shape) != tuple(self.leaves[i].shape):
+                full = (self.placement.full_shapes[i] if self.placement
+                        else tuple(self.leaves[i].shape))
+                if tuple(arr.shape) != tuple(full):
                     raise ValueError(
                         f"optimizer state {name}[{key}] has shape "
-                        f"{tuple(arr.shape)}, the leaf "
-                        f"{tuple(self.leaves[i].shape)}")
-                ts[i] = torch.from_numpy(np.array(arr)).to(
-                    self.leaves[i].device, torch.float32)
+                        f"{tuple(arr.shape)}, the leaf {tuple(full)}")
+                t = torch.from_numpy(np.array(arr))
+                if self.placement is not None:
+                    t = self.placement.shard_of(i, t)
+                ts[i] = t.to(self.leaves[i].device, torch.float32,
+                             copy=True)
         if missing:
             logger.info("optimizer state has no moments for %d trained "
                         "leaves (%s, ...): they start at zero",
@@ -221,8 +254,18 @@ class AdamW:
         live = [g for g in grads if g is not None]
         dev = self.leaves[0].device
         # global norm over every gradient, frozen leaves included
-        norm = torch.sqrt(sum((g.to(torch.float32) * g).sum() for g in live)
-                          if live else torch.zeros((), device=dev))
+        pl = self.placement
+        if pl is not None and pl.split:
+            sq = torch.zeros((), dtype=torch.float32, device=dev)
+            for i, g in enumerate(grads):
+                if g is not None and self._counts(i):
+                    sq = sq + (g.to(torch.float32) * g).sum()
+            norm = torch.sqrt(mesh.all_reduce_(sq))
+        else:
+            norm = torch.sqrt(sum((g.to(torch.float32) * g).sum()
+                                  for g in live)
+                              if live else torch.zeros((), device=dev))
+        self.norm = norm  # the last update's gradient norm, on the device
         trigger = norm < self.clip
         denom = torch.where(trigger, torch.ones_like(norm), norm)
         factor = torch.where(trigger, torch.ones_like(norm),
@@ -255,20 +298,32 @@ class AdamW:
         self.count = count_inc
 
 
+    def _counts(self, i: int) -> bool:
+        """Whether this rank adds leaf ``i``'s squares to the global norm:
+        one rank of the ranks that hold the same values."""
+        s, g = self.placement.specs[i], self.placement.grid
+        if s is None:
+            return g.rank == 0
+        return (g.index_rank if s.axis == sharding.DATA
+                else g.data_rank) == 0
+
+
 def _f32_zeros(t: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(t, dtype=torch.float32)
 
 
 def set_optim(opt: Options, params: dict, opt_state=None,
-              step: int = 0) -> AdamW:
+              step: int = 0, placement=None) -> AdamW:
     """The optimizer over every leaf of ``params``; leaves that take no
     gradient (the LoRA-frozen generator base) stop requiring one. On a
     resume at ``step``: ``opt_state`` in the port's form (``state_dict``)
     is restored; otherwise the update count starts at ``step //
     accumulation_steps`` (the loop takes one micro-step a step and
     ``AdamW.step`` closes a window every ``accumulation_steps``), so the LR
-    schedule goes on where the run stopped, with zero moments."""
-    tx = AdamW(opt, params)
+    schedule goes on where the run stopped, with zero moments. Under a
+    sharded ``placement`` (``train/step.py::place_params``, built before
+    this) the moments live on the shards and ``opt_state`` is narrowed."""
+    tx = AdamW(opt, params, placement)
     if isinstance(opt_state, dict) and \
             opt_state.get("format") == OPT_STATE_FORMAT:
         tx.load_state_dict(opt_state)

@@ -1,7 +1,7 @@
 """Evaluation metrics: SQuAD-normalized EM/F1, Rouge, BLEU, substring recall,
-coverage@k (src/metrics.py, build_server/metrics.py:15-24); MRR and
-recall@k of ids (recall.py:54-63) serve the JAX package's retrieval
-scripts and are not copied.
+coverage@k (src/metrics.py, build_server/metrics.py:15-24), and MRR and
+recall@k of passage ids (recall.py:54-63), which ``analysis/recall_mrr.py``
+reads.
 
 The port's own copy of ``jsa_rag_tpu/utils/metrics.py`` (framework-neutral,
 copied so the port imports nothing of the JAX package)."""
@@ -72,6 +72,18 @@ def coverage_at_k(passages: Sequence[str], ground_truths: Sequence[str],
     for k in ks:
         out[f"coverage@{k}"] = float(recall(passages[:k], ground_truths) > 0)
     return out
+
+
+def mrr_at_k(ranked_ids: Sequence, gold_ids: set, k: int = 10) -> float:
+    """Mean reciprocal rank of the first gold id (recall.py:54-63)."""
+    for r, pid in enumerate(ranked_ids[:k]):
+        if pid in gold_ids:
+            return 1.0 / (r + 1)
+    return 0.0
+
+
+def recall_at_k(ranked_ids: Sequence, gold_ids: set, k: int) -> float:
+    return float(any(pid in gold_ids for pid in ranked_ids[:k]))
 
 
 # ------------------------------------------------------------------- rouge

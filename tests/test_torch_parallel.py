@@ -199,37 +199,56 @@ def test_refine_gather_is_checked_with_the_jax_words(saved_index, value):
     ("tensor_parallel", (2, 1), False), ("tensor_parallel", (1, 1), False)])
 def test_fsdp_and_tensor_parallel_wait_for_a13b(flag, grid, raises):
     """``--shard_optim`` over a data axis above 1 and ``--tensor_parallel``
-    over an index axis above 1 raise ``NotImplementedError`` naming A13b;
-    where the axis has size 1 they are the no-op they are in JAX (every
-    param spec replicated)."""
+    over an index axis above 1 (``raises``: the cases that raised before
+    A13b was ported) split leaves as the JAX ``param_specs`` does, leaf
+    for leaf; where the axis has size 1 they are the no-op they are in JAX
+    (every param spec replicated)."""
     from jsa_rag_tpu.model_io import load_or_initialize_model
     from jsa_rag_tpu.data.passages import PassageStore
+    from jsa_rag_tpu_torch import model_io as tmodel_io
+    from jsa_rag_tpu_torch.data.passages import PassageStore as TStore
 
     n = grid[0] * grid[1]
     g = mesh.make_grid(*grid, world=n, rank=0)
-    topt = tconfig.Options(device="cpu", **{flag: True})
-    if raises:
-        with pytest.raises(NotImplementedError, match="13b"):
-            tstep.param_placement(topt, g)
-        return
-    assert tstep.param_placement(topt, g) == "replicated"
+    topt = tconfig.Options(device="cpu", model_size="tiny", max_vocab=300,
+                           **{flag: True})
+    want = {"shard_optim": "fsdp", "tensor_parallel": "tensor_parallel"}
+    assert tstep.param_placement(topt, g) == (want[flag] if raises
+                                              else "replicated")
     jopt = jconfig.Options(model_size="tiny", max_vocab=300, **{flag: True})
     _, params, _ = load_or_initialize_model(jopt, PassageStore.synthetic(4))
     specs = jstep.param_specs(jopt, params,
                               make_mesh(*grid, devices=jax.devices()[:n]))
-    leaves = jax.tree_util.tree_leaves(
-        specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
-    assert leaves and all(tuple(s) == () for s in leaves)
+    flat = jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    jspecs = {tuple(str(getattr(k, "key", getattr(k, "idx", k)))
+                    for k in path): s for path, s in flat}
+    _, tparams, _ = tmodel_io.load_or_initialize_model(topt, TStore.synthetic(4))
+    tspecs = tstep.param_specs(topt, tparams, g)
+    assert set(tspecs) == set(jspecs)
+    for path, s in jspecs.items():
+        t = tspecs[path]
+        assert (tuple(s) == () if t is None else
+                tuple(s) == tuple(t.axis if i == t.dim else None
+                                  for i in range(len(tuple(s))))), path
+    assert any(t is not None for t in tspecs.values()) == raises
 
 
 def test_the_sharded_ivf_index_waits_for_a13b(monkeypatch):
-    """An IVF index over several processes raises (its sharded form is
-    A13b); the flat index does not."""
+    """The IVF index shards its lists over the grid as the flat index
+    shards its rows (A13b): a grid of two ranks in a process group of one
+    raises the flat index's error for both; a grid of one builds either."""
     opt = tconfig.Options(index_mode="ivf", index_dtype="float32",
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="13b"):
-        build_index_for(opt, 64, 8, "cpu",
-                        grid=mesh.make_grid(1, 2, world=2, rank=0))
+    two = mesh.make_grid(1, 2, world=2, rank=0)
+    for mode in ("ivf", "flat"):
+        opt.index_mode = mode
+        with pytest.raises(ValueError, match="a grid of 2 shards under 1"):
+            build_index_for(opt, 64, 8, "cpu", grid=two)
+    opt.index_mode = "ivf"
+    idx = build_index_for(opt, 64, 8, "cpu",
+                          grid=mesh.make_grid(1, 1, world=1, rank=0))
+    assert idx.n_shards == 1 and idx.n_lists == 16
 
 
 def _free_port() -> int:
