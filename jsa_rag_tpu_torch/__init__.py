@@ -15,8 +15,10 @@ generators, bf16 parameter storage, the rerank and a profiler trace of
 chosen steps, the IVF indexes (the reference's FAISS ivfflat/ivfsq/ivfpq
 modes) with k-means, the approximate search, the Atlas index interop
 (``index/atlas_io.py``), several processes under ``torchrun`` (the (data,
-index) grid, DDP and the rank-sharded flat index, ``parallel/``); and the
-hand-written CUDA kernels behind the scans (``csrc/``). Every entry point takes an explicit device and
+index) grid, DDP and the rank-sharded flat index, ``parallel/``), the
+hard-copy demo trained from scratch (``demo/``) and the end-to-end benches
+(``analysis/``); and the hand-written CUDA kernels behind the scans
+(``csrc/``). Every entry point takes an explicit device and
 defaults to ``cuda``; asking for ``cuda`` where there is none raises
 (``device.resolve_device``), nothing falls back to the CPU on its own.
 """

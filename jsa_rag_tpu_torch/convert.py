@@ -17,15 +17,14 @@ tree — ``retriever``, ``post_retriever`` (all its towers, or the query tower
 alone under ``decouple_encoder``), ``generator`` and ``lora`` — under the same
 top-level keys, as a checkpoint pickle holds it.
 
-Demo artifacts. ``load_demo_artifacts`` reads the committed hard-copy
-encoder and generator pickles (numpy fp16 leaves + a SimpleTokenizer vocab),
-the counterpart of ``scripts/pretrain_hard_encoder.py:37-53`` and
+Demo artifacts. ``load_demo_artifacts`` reads the hard-copy encoder and
+generator pickles (numpy fp16 leaves + a SimpleTokenizer vocab) through
+``demo/``'s loaders, the counterparts of
+``scripts/pretrain_hard_encoder.py:37-53`` and
 ``scripts/pretrain_copy_generator.py:30-43``, which import JAX.
 """
 
 from __future__ import annotations
-
-import pickle
 
 import numpy as np
 import torch
@@ -83,6 +82,12 @@ def _map_tree(tree, fn):
     if isinstance(tree, (list, tuple)):
         return [_map_tree(v, fn) for v in tree]
     return fn(tree)
+
+
+def numpy_float16(tree):
+    """A numpy pytree with every leaf as float16: how the demo artifacts
+    store their params."""
+    return _map_tree(tree, lambda v: np.asarray(v, np.float16))
 
 
 def lm_params_from_numpy(tree: dict, device="cpu",
@@ -152,25 +157,13 @@ def params_from_numpy(tree: dict, retriever_cfg, device="cpu") -> dict:
 
 def load_demo_artifacts(encoder_path: str, generator_path: str,
                         device="cpu"):
-    """The committed hard-copy demo pickles -> (retriever, generator config,
+    """The hard-copy demo pickles -> (retriever, generator config,
     generator params, tokenizer): a tied ``DualEncoderRetriever`` in f32 on
     ``device``, the ``LMConfig`` at f32, its f32 params, and the shared
     ``SimpleTokenizer`` restored from the generator's vocab (both pickles
-    carry the same one)."""
-    from .data.tokenizer import SimpleTokenizer
-    from .models.bert import BertConfig
-    from .models.lm import LMConfig
-    from .models.retriever import DualEncoderRetriever, RetrieverConfig
+    carry the same one). The loaders are ``demo/``'s."""
+    from .demo.pretrain_copy_generator import load_generator
+    from .demo.pretrain_hard_encoder import load_artifact
 
-    with open(encoder_path, "rb") as f:
-        enc = pickle.load(f)
-    with open(generator_path, "rb") as f:
-        gen = pickle.load(f)
-    bert = BertConfig(**enc["bert"])
-    retriever = DualEncoderRetriever(RetrieverConfig(bert=bert, tied=True),
-                                     device=device)
-    retriever.load_state_dict(retriever_params_from_numpy(enc["params"]))
-    lm_cfg = LMConfig(dtype=torch.float32, **gen["lm"])
-    return (retriever.eval(), lm_cfg,
-            lm_params_from_numpy(gen["params"], device),
-            SimpleTokenizer.from_dict(gen["vocab"]))
+    retriever, _ = load_artifact(encoder_path, device)
+    return (retriever, *load_generator(generator_path, device))

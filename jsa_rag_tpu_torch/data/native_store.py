@@ -6,6 +6,11 @@ is framework-neutral: it is compiled here with g++ at first use into
 ``native/_build/`` (outside the Python package: a ctypes library inside a
 package directory looks like a broken CPython extension to import scanners)
 under a name of its own, so the two packages never race on one file.
+
+Built from a jsonl corpus (one ``{"id", "title", "text"}`` row a line) on
+the command line, the counterpart of ``scripts/build_passage_store.py``::
+
+    python -m jsa_rag_tpu_torch.data.native_store corpus.jsonl corpus.bin
 """
 
 from __future__ import annotations
@@ -13,7 +18,9 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import sys
 import threading
+import time
 
 _lock = threading.Lock()
 _lib = None
@@ -108,3 +115,19 @@ class NativePassageStore:
             self.close()
         except Exception:
             pass
+
+
+def main(argv=None) -> int:
+    """Build the store named by ``argv`` (jsonl path, store path); -> its
+    record count."""
+    src, dst = argv if argv is not None else sys.argv[1:3]
+    t0 = time.time()
+    n = build_store(src, dst)
+    dt = time.time() - t0
+    print(f"built {dst}: {n} passages in {dt:.1f}s ({n / max(dt, 1e-9):.0f}"
+          "/s)", flush=True)
+    return n
+
+
+if __name__ == "__main__":
+    main()

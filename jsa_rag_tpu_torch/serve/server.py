@@ -32,6 +32,13 @@ def _host(t) -> np.ndarray:
     return np.asarray(t)
 
 
+def bucket_shape(rows: int, k: int) -> tuple[int, int]:
+    """(rows, k) of the search the batcher runs for ``rows`` query rows at
+    ``k``: rows to a power of two, at least 8, and k to a power of two."""
+    return (max(8, 1 << max(0, rows - 1).bit_length()),
+            1 << max(0, k - 1).bit_length())
+
+
 class _SearchBatcher:
     """Coalesce concurrent searches into one bucketed device dispatch.
 
@@ -116,9 +123,7 @@ class _SearchBatcher:
     def _dispatch(self, take: list[dict], rows: int):
         try:
             qs = np.concatenate([it["q"] for it in take])
-            k_max = max(it["k"] for it in take)
-            k_pad = 1 << max(0, k_max - 1).bit_length()
-            r_pad = max(8, 1 << max(0, rows - 1).bit_length())
+            r_pad, k_pad = bucket_shape(rows, max(it["k"] for it in take))
             if r_pad > rows:
                 qs = np.pad(qs, ((0, r_pad - rows), (0, 0)))
             s, i = self.index.search(qs, k_pad)
