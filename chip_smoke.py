@@ -7,8 +7,9 @@ mlm tasks, the IVF indexes (training, evaluate and serve through ivfpq),
 the Atlas index interop, and several processes (a one-rank NCCL group,
 two ranks sharing the card over gloo: data parallelism, FSDP, tensor
 parallelism and the sharded indexes), the hard-copy demo trained from
-scratch and the end-to-end benches, every kernel of those paths against
-its plain PyTorch version.
+scratch and the end-to-end benches, the probes of the scans and their
+wrappers, the copy-task demos and the HF interop drive, every kernel of
+those paths against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -345,6 +346,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     to the bare search's), ``analysis.embed_bench`` at bge-large geometry
     over 4,096 passages and ``analysis.decode_bench`` at 16 x 2048, B = 8,
     64 tokens; every time finite and positive.
+31. (run after phase 20, alone on the card) the probes at the flagship
+    geometry (1,300,000 x 1024, B = 512, k = 100, refine 4, 4 timed
+    batches an arm): ``analysis.refine_bench``'s ``main`` (every arm),
+    ``analysis.int8r_gap_probe``'s (the wrapper, its quantize / scan /
+    merge / refine layers, the shard program and ``index.search``; the
+    layers' sum beside the wrapper is recorded) and ``analysis.
+    mips_tune``'s in both layouts (tile 128 / 256 x T 2 / 4), each
+    kernel's launches counted over each main; the first call of each scan
+    geometry a main launched (B1-B6) held to its plain version on that
+    call's own inputs (B1 and B2 bit-equal); every ms and qps finite and
+    positive.
+32. (in a process of its own, started after phase 26 and read after phase
+    29) the copy task at 26,000 passages (``scripts/make_copy_task_data.py``
+    without ``--hard``, 25,000 train topics, 100 unseen dev questions): the
+    generator copy-pretrained 2,500 steps by the train entry
+    (``demo.copy_task``), ``demo.e2e_copy`` (zero shot, 400 joint rag
+    steps; f32 index, B3, its first scan held to its plain version) and
+    ``demo.jsa_mechanism`` (600 jsa steps; likewise B3's first scan, the
+    prior's recall before training); beside them, on a thread,
+    ``demo.hf_interop``'s five steps in subprocesses. Bars, beside the JAX
+    package's records: EM with gold >= 0.75 (0.81) and the last logged
+    loss < 1.0 (0.14); zero-shot EM >= 0.60 (0.71) and recall >= 0.90
+    (1.0), the joint run no more than 0.05 below either; the prior's
+    recall@4 before <= 0.05 (0.00; after: recorded), every accept rate in
+    (0, 1], the mechanism's last logged loss below its first; every loss
+    finite; every HF step rc 0; the round trip holds the saved index's 300
+    rows (at fp16) and passages row for row, and its recall stays within
+    0.02 of the saved index's.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, the ``kernels`` JSON object (B1-B9) and
@@ -359,12 +388,18 @@ import logging
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
+
+from jsa_rag_tpu_torch.models.hf_write import (bert_state_dict,
+                                               gpt2_state_dict, hf_init,
+                                               write_hf_dir,
+                                               write_safetensors)
 
 SEED = 0
 DIM = 1024
@@ -709,16 +744,22 @@ class KeepFloats:
 
 
 @contextlib.contextmanager
-def recording(owner, name: str, limit: int | None = None):
+def recording(owner, name: str, limit: int | None = None, key=None):
     """Wrap ``owner.name`` (a function or method) so the arguments and
-    result of each call (the first ``limit`` calls) are appended to the
+    result of each call (the first ``limit`` calls; with ``key``, the first
+    call of each distinct ``key(args, kwargs)``) are appended to the
     yielded list; restored on exit."""
     real = getattr(owner, name)
-    calls = []
+    calls, seen = [], set()
 
     def wrapper(*args, **kwargs):
         out = real(*args, **kwargs)
-        if limit is None or len(calls) < limit:
+        if key is not None:
+            k = key(args, kwargs)
+            if k not in seen:
+                seen.add(k)
+                calls.append((args, kwargs, out))
+        elif limit is None or len(calls) < limit:
             calls.append((args, kwargs, out))
         return out
 
@@ -2646,36 +2687,128 @@ def bench_phase(torch, mt, ms, dev, errs: dict) -> dict:
             "timing": timing}
 
 
+# --------------------------------------------------------------- phase 31
+PROBE_ITERS = 4       # timed batches an arm (the JAX scripts' default 8)
+REFINE_R = 4
+# the scans the probes' wrappers launch, and the kernel each one is
+PROBE_KERNELS = {"scan_topt_int8r2": "B1", "scan_topt_int8": "B2",
+                 "scan_topt_dense": "B3", "scan_topt_f16h": "B4",
+                 "scan_topt_f16": "B5", "mips_topk_dense": "B6"}
+PROBE_SCANS = ("scan_topt_int8r2", "scan_topt_int8", "scan_topt_dense",
+               "scan_topt_f16h", "scan_topt_f16")
+
+
+def scan_call_key(args, kwargs) -> tuple:
+    """A scan call's geometry: the query rows, its integer arguments
+    (valid count, tile, T) and whether it counts for a row-major wrapper
+    (B6 is B3's instance with ``counter=mips_topk_dense``)."""
+    return (args[0].shape[0], *(a for a in args if isinstance(a, int)),
+            kwargs.get("counter") is not None)
+
+
+def compare_recorded_scan(mt, name: str, call, what: str) -> tuple:
+    """One recorded call of the scan ``name`` against its plain version on
+    that call's own inputs; -> (kernel, max abs error)."""
+    args, kwargs, _ = call
+    nv, tile, t = args[-3:]
+    rows = args[{"scan_topt_int8r2": 4, "scan_topt_int8": 2}.get(name, 1)]
+    what = (f"{what}'s first call at B={args[0].shape[0]} "
+            f"N={rows.shape[0]} valid={nv} tile={tile} T={t}")
+    if name == "scan_topt_int8r2":
+        return "B1", compare_int8r(mt, args, "B1 " + what)
+    if name == "scan_topt_int8":
+        return "B2", compare_int8(mt, *args, "B2 " + what)
+    if name == "scan_topt_dense":
+        kernel = "B6" if kwargs.get("counter") is not None else "B3"
+        return kernel, compare_dense(mt, *args, f"{kernel} {what}")
+    kind = name.removeprefix("scan_topt_")
+    return ("B4" if kind == "f16h" else "B5"), compare_f16(mt, kind, *args,
+                                                          what)
+
+
+def probes_phase(torch, mt, dev) -> dict:
+    """Phase 31: the three probes' ``main`` at the flagship geometry, every
+    kernel's launches counted over each main, then the first call of each
+    scan geometry each main launched held to its plain version on that
+    call's own inputs (the main's stores, B = 512)."""
+    from jsa_rag_tpu_torch.analysis import (int8r_gap_probe, mips_tune,
+                                            refine_bench)
+
+    log(f"[31] the probes at {N_INDEX} x {DIM}, B=512, k={TOPK}, refine "
+        f"{REFINE_R}: refine_bench, int8r_gap_probe, mips_tune (both "
+        f"layouts), {PROBE_ITERS} timed batches an arm")
+    geometry = ["--n", str(N_INDEX), "--d", str(DIM), "--b", "512", "--k",
+                str(TOPK), "--iters", str(PROBE_ITERS), "--seed", str(SEED),
+                "--device", dev.type]
+    launches, out, errs = {}, {}, {}
+    seconds = {"mains": 0.0, "checks": 0.0}
+    for path, module, argv in (
+            ("refine_bench", refine_bench, ["--refine", str(REFINE_R)]),
+            ("int8r_gap_probe", int8r_gap_probe, []),
+            ("mips_tune_t", mips_tune, ["--layout", "t"]),
+            ("mips_tune_row", mips_tune, ["--layout", "row"])):
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            calls = {name: stack.enter_context(recording(
+                mt, name, key=scan_call_key)) for name in PROBE_SCANS}
+            for name in PROBE_KERNELS:
+                getattr(mt, name).launches = 0  # main path starts
+            out[path] = module.main([*geometry, *argv])
+            launches[path] = {kernel: getattr(mt, name).launches
+                              for name, kernel in PROBE_KERNELS.items()}
+            # main path ends
+        t1 = time.perf_counter()
+        for name, recorded in calls.items():
+            while recorded:  # each call's stores go once it is checked
+                kernel, err = compare_recorded_scan(mt, name,
+                                                    recorded.pop(0), path)
+                errs[kernel] = max(errs.get(kernel, 0.0), err)
+        del calls
+        torch.cuda.empty_cache()
+        seconds["mains"] += t1 - t0
+        seconds["checks"] += time.perf_counter() - t1
+    rb, gp = out["refine_bench"], out["int8r_gap_probe"]
+    positive_times("refine_bench", [v for a in rb["arms"].values()
+                                    for v in (a["ms"], a["qps"])])
+    positive_times("int8r_gap_probe", [v for r in gp["rows"]
+                                       for v in (r["ms_per_call"], r["qps"])])
+    for layout in ("t", "row"):
+        positive_times(f"mips_tune --layout {layout}", [
+            v for c in out[f"mips_tune_{layout}"]["configs"]
+            for v in (c["ms"], c["qps"])])
+    for path, kernels in (("refine_bench", ("B1", "B2", "B3", "B4", "B5")),
+                          ("int8r_gap_probe", ("B1", "B3")),
+                          ("mips_tune_t", ("B3",)),
+                          ("mips_tune_row", ("B6",))):
+        for kernel in kernels:
+            if launches[path][kernel] < 1:
+                raise AssertionError(f"{path} never launched {kernel}")
+            if kernel not in errs:
+                raise AssertionError(f"{path}: no {kernel} call was held to "
+                                     f"its plain version")
+    log("  refine_bench ms/call: " + ", ".join(
+        f"{a} {v['ms']:.3f}" for a, v in rb["arms"].items()))
+    log("  int8r_gap_probe ms/call: " + ", ".join(
+        f"{r['arm']} {r['ms_per_call']:.3f}" for r in gp["rows"])
+        + f"; the layers' sum {gp['layer_sum_ms']:.3f} against kernel "
+        f"{gp['kernel_ms']:.3f} (recorded)")
+    for layout in ("t", "row"):
+        mt_out = out[f"mips_tune_{layout}"]
+        log(f"  mips_tune --layout {layout}: " + ", ".join(
+            f"tile_n={c['tile_n']} t={c['t_per_tile']} (T {c['T']}) "
+            f"{c['ms']:.3f} ms" for c in mt_out["configs"])
+            + f"; best {mt_out['best']}")
+    log("  launches " + "; ".join(
+        f"{p}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v)
+        for p, c in launches.items()))
+    log(f"  seconds: mains {seconds['mains']:.1f}, checks "
+        f"{seconds['checks']:.1f}")
+    return {"refine_bench": rb, "int8r_gap_probe": gp,
+            "mips_tune": {k: out[f"mips_tune_{k}"] for k in ("t", "row")},
+            "launches": launches, "max_abs_err": errs, "seconds": seconds}
+
+
 # --------------------------------------------------------------- phase 21
-SAFETENSORS_NAMES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16"}
-
-
-def write_safetensors(path: str, tensors: dict, metadata=None) -> None:
-    """``{name: CPU tensor}`` -> one ``.safetensors`` file: an 8-byte
-    little-endian header length, the JSON header (``dtype``, ``shape``,
-    ``data_offsets`` from the end of the header; ``__metadata__``) padded
-    with spaces to 8 bytes, then each tensor's bytes in order."""
-    import torch
-
-    header, offset = {}, 0
-    for name, t in tensors.items():
-        n = t.numel() * t.element_size()
-        header[name] = {"dtype": SAFETENSORS_NAMES[str(t.dtype).removeprefix(
-            "torch.")], "shape": list(t.shape),
-            "data_offsets": [offset, offset + n]}
-        offset += n
-    if metadata:
-        header["__metadata__"] = metadata
-    blob = json.dumps(header, separators=(",", ":")).encode()
-    blob += b" " * (-len(blob) % 8)
-    with open(path, "wb") as f:
-        f.write(len(blob).to_bytes(8, "little"))
-        f.write(blob)
-        for t in tensors.values():
-            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy()
-                    .data)
-
-
 # the published geometries (config.json of BAAI/bge-large-en,
 # mistralai/Mistral-7B-v0.1 and gpt2); HF_GEN_LAYERS is the depth the
 # smoke writes for the Mistral-width generator (widths are never cut):
@@ -2722,29 +2855,6 @@ MISTRAL_LEAVES = {
     "down_w": ("mlp.down_proj.weight", True)}
 
 
-def hf_init(torch, g, dev, dtype):
-    """-> (w(shape), ones(n), zeros(n)): HF's init at ``initializer_range``
-    0.02 (normal weights, unit norm scales, zero biases), made on the card
-    from ``g`` and returned on the host."""
-    def w(*shape):
-        return torch.empty(shape, dtype=dtype, device=dev).normal_(
-            0.0, 0.02, generator=g).cpu()
-
-    def ones(n):
-        return torch.ones((n,), dtype=dtype)
-
-    def zeros(n):
-        return torch.zeros((n,), dtype=dtype)
-
-    return w, ones, zeros
-
-
-def write_hf_dir(path: str, config: dict) -> None:
-    os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(config, f, indent=1)
-
-
 def write_bge_large(torch, g, dev, path: str) -> None:
     """bge-large-en's geometry as a ``BertModel`` save: float32 weights in
     ``pytorch_model.bin`` (as the published model ships), the pooler
@@ -2757,33 +2867,7 @@ def write_bge_large(torch, g, dev, path: str) -> None:
 def bge_large_state_dict(torch, g, dev) -> dict:
     """A ``BertModel`` state dict at bge-large-en's geometry, float32, on
     the host, from ``g``."""
-    c = BGE_LARGE_CONFIG
-    h, f = c["hidden_size"], c["intermediate_size"]
-    w, ones, zeros = hf_init(torch, g, dev, torch.float32)
-    sd = {"embeddings.word_embeddings.weight": w(c["vocab_size"], h),
-          "embeddings.position_embeddings.weight": w(
-              c["max_position_embeddings"], h),
-          "embeddings.token_type_embeddings.weight": w(c["type_vocab_size"],
-                                                       h),
-          "embeddings.LayerNorm.weight": ones(h),
-          "embeddings.LayerNorm.bias": zeros(h)}
-    for i in range(c["num_hidden_layers"]):
-        pre = f"encoder.layer.{i}."
-        for name, (n_out, n_in) in (
-                ("attention.self.query", (h, h)),
-                ("attention.self.key", (h, h)),
-                ("attention.self.value", (h, h)),
-                ("attention.output.dense", (h, h)),
-                ("intermediate.dense", (f, h)),
-                ("output.dense", (h, f))):
-            sd[pre + name + ".weight"] = w(n_out, n_in)
-            sd[pre + name + ".bias"] = zeros(n_out)
-        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
-            sd[pre + name + ".weight"] = ones(h)
-            sd[pre + name + ".bias"] = zeros(h)
-    sd["pooler.dense.weight"] = w(h, h)
-    sd["pooler.dense.bias"] = zeros(h)
-    return sd
+    return bert_state_dict(BGE_LARGE_CONFIG, hf_init(g, torch.float32, dev))
 
 
 def write_mistral(torch, g, dev, path: str, layers: int) -> int:
@@ -2793,7 +2877,7 @@ def write_mistral(torch, g, dev, path: str, layers: int) -> int:
     c = dict(MISTRAL_7B_CONFIG, num_hidden_layers=layers)
     h, f, v = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
     kv = c["num_key_value_heads"] * h // c["num_attention_heads"]
-    w, ones, _ = hf_init(torch, g, dev, torch.bfloat16)
+    w, ones, _ = hf_init(g, torch.bfloat16, dev)
     write_hf_dir(path, c)
     groups = [list(range(i, min(i + 4, layers)))
               for i in range(0, layers, 4)]
@@ -2831,27 +2915,8 @@ def write_gpt2(torch, g, dev, path: str) -> None:
     """gpt2's published config as a ``GPT2LMHeadModel`` save: float32
     weights in one ``model.safetensors``, Conv1D (in, out) layouts, the
     head tied (absent)."""
-    c = GPT2_CONFIG
-    h, v = c["n_embd"], c["vocab_size"]
-    w, ones, zeros = hf_init(torch, g, dev, torch.float32)
-    sd = {"transformer.wte.weight": w(v, h),
-          "transformer.wpe.weight": w(c["n_positions"], h)}
-    for i in range(c["n_layer"]):
-        pre = f"transformer.h.{i}."
-        sd.update({
-            pre + "ln_1.weight": ones(h), pre + "ln_1.bias": zeros(h),
-            pre + "attn.c_attn.weight": w(h, 3 * h),
-            pre + "attn.c_attn.bias": zeros(3 * h),
-            pre + "attn.c_proj.weight": w(h, h),
-            pre + "attn.c_proj.bias": zeros(h),
-            pre + "ln_2.weight": ones(h), pre + "ln_2.bias": zeros(h),
-            pre + "mlp.c_fc.weight": w(h, 4 * h),
-            pre + "mlp.c_fc.bias": zeros(4 * h),
-            pre + "mlp.c_proj.weight": w(4 * h, h),
-            pre + "mlp.c_proj.bias": zeros(h)})
-    sd["transformer.ln_f.weight"] = ones(h)
-    sd["transformer.ln_f.bias"] = zeros(h)
-    write_hf_dir(path, c)
+    sd = gpt2_state_dict(GPT2_CONFIG, hf_init(g, torch.float32, dev))
+    write_hf_dir(path, GPT2_CONFIG)
     write_safetensors(os.path.join(path, "model.safetensors"), sd,
                       metadata={"format": "pt"})
 
@@ -5453,10 +5518,10 @@ def demo_train_phase(torch, mt, dev, work) -> dict:
             "launches": launches, "max_abs_err": max_err}
 
 
-# phase 29 runs in a process of its own beside phase 28: its 3,400 small
-# steps are host-paced (~900 launches a step, ~1 ms of device work), phase
-# 28's two gloo ranks already share the card, and the smoke has no time to
-# run them one after the other
+# phases 29 and 32 run in processes of their own beside phases 27-28: their
+# thousands of small steps are host-paced (~900 launches a step, ~1 ms of
+# device work), phases 27-28's two gloo ranks already share the card, and
+# the smoke has no time to run them one after the other
 DEMO_TIMEOUT_S = 900
 DEMO_SIZES = ("DEMO_ENCODER_STEPS", "DEMO_GENERATOR_STEPS", "DEMO_JOINT_STEPS",
               "DEMO_GENERATOR_SEED", "DEMO_RECALL4_BAR", "DEMO_BOW_MAX",
@@ -5464,54 +5529,66 @@ DEMO_SIZES = ("DEMO_ENCODER_STEPS", "DEMO_GENERATOR_STEPS", "DEMO_JOINT_STEPS",
               "DEMO_ZERO_RECALL_BAR", "DEMO_JOINT_SLACK")
 
 
-def start_demo(dev, work: str):
-    """Start phase 29 in a child process (``demo_worker``), the parent's
-    sizes and bars passed in its config; -> (the process, its log, its
-    result file). The child joins no process group."""
+def start_child(dev, work: str, phase: int, worker: str, sizes) -> tuple:
+    """Start phase ``phase`` in a child process that runs ``worker`` (a
+    function of this module taking a config path), the parent's ``sizes``
+    (names of module constants) passed in its config; -> (the phase, the
+    process, its log, its result file). The child joins no process
+    group."""
     root = os.path.dirname(os.path.abspath(__file__))
-    cfg_path = os.path.join(work, "demo29.json")
+    cfg_path = os.path.join(work, f"phase{phase}.json")
     cfg = {"work": work, "device": str(dev),
-           "out": os.path.join(work, "demo29_result.json"),
-           "sizes": {k: globals()[k] for k in DEMO_SIZES}}
+           "out": os.path.join(work, f"phase{phase}_result.json"),
+           "sizes": {k: globals()[k] for k in sizes}}
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                         "MASTER_PORT")}
     env["PYTHONPATH"] = root
-    log_path = os.path.join(work, "demo29.log")
+    log_path = os.path.join(work, f"phase{phase}.log")
     code = ("import sys\nimport chip_smoke\n"
-            "chip_smoke.demo_worker(sys.argv[1])\n")
+            f"chip_smoke.{worker}(sys.argv[1])\n")
     with open(log_path, "w") as f:
+        # a session of its own: a kill reaches the processes it starts
         proc = subprocess.Popen([sys.executable, "-c", code, cfg_path],
                                 cwd=root, env=env, stdout=f,
-                                stderr=subprocess.STDOUT)
-    log(f"[29] started beside phase 28 (pid {proc.pid})")
-    return proc, log_path, cfg["out"]
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    log(f"[{phase}] started in a process of its own (pid {proc.pid})")
+    return phase, proc, log_path, cfg["out"]
 
 
-def finish_demo(started) -> dict:
-    """Wait for ``start_demo``'s child (killed past ``DEMO_TIMEOUT_S``),
-    copy its log into this one; -> its result, or raise."""
-    proc, log_path, out = started
+def kill_child(proc) -> None:
+    """Kill ``start_child``'s process and every process it started."""
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+def finish_child(started, timeout: float) -> dict:
+    """Wait for ``start_child``'s process (killed past ``timeout``
+    seconds), copy its log into this one; -> its result, or raise."""
+    phase, proc, log_path, out = started
     try:
-        rc = proc.wait(timeout=DEMO_TIMEOUT_S)
+        rc = proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
+        kill_child(proc)
         rc = None
     with open(log_path) as f:
         for line in f:
             log(line.rstrip("\n"))
     if rc != 0:
-        raise AssertionError(f"phase 29's process ended with {rc}")
+        raise AssertionError(f"phase {phase}'s process ended with {rc}")
     with open(out) as f:
         return json.load(f)
 
 
-def demo_worker(cfg_path: str) -> None:
-    """Phase 29 in ``start_demo``'s child: the kernels (built by the
-    parent) loaded, the demo trained and checked, the result written."""
+def child_setup(cfg_path: str):
+    """A child's start: its config read and the parent's sizes applied;
+    on the card the kernels (built by the parent) loaded; in a rehearsal on
+    the CPU at a small size, B3's plain version counted as its launches.
+    -> (torch, mt, the device, the config)."""
     import torch
 
     from jsa_rag_tpu_torch.device import exact_f32_matmul
@@ -5524,7 +5601,7 @@ def demo_worker(cfg_path: str) -> None:
     if dev.type == "cuda":
         exact_f32_matmul()
         mt._kernel_libs()
-    else:  # a rehearsal on the CPU at a small size: B3's plain version
+    else:
         torch.cuda.synchronize = lambda *a, **k: None
         plain = mt.scan_topt_dense_plain
 
@@ -5533,12 +5610,195 @@ def demo_worker(cfg_path: str) -> None:
             return plain(*args, **kwargs)
 
         mt.scan_topt_dense_plain = counted
+    return torch, mt, dev, cfg
+
+
+def run_child(cfg_path: str, phase: int, fn) -> None:
+    """``fn(torch, mt, dev, work)`` in a child, its result written to the
+    config's result file."""
+    torch, mt, dev, cfg = child_setup(cfg_path)
     t0 = time.perf_counter()
-    result = demo_train_phase(torch, mt, dev, cfg["work"])
+    result = fn(torch, mt, dev, cfg["work"])
     result["worker_s"] = time.perf_counter() - t0
-    log(f"  phase 29's process: {result['worker_s']:.1f} s")
+    log(f"  phase {phase}'s process: {result['worker_s']:.1f} s")
     with open(cfg["out"], "w") as f:
         json.dump(result, f)
+
+
+def demo_worker(cfg_path: str) -> None:
+    """Phase 29 in ``start_child``'s process."""
+    run_child(cfg_path, 29, demo_train_phase)
+
+
+# --------------------------------------------------------------- phase 32
+# the copy task at the recorded run's scale (docs/BENCHMARKS.md:245: 26k
+# passages; 100 unseen dev questions) and the demos' recipe steps
+COPY_N_TOPICS = 26_000
+COPY_N_TRAIN_TOPICS = 25_000
+COPY_GENERATOR_STEPS = 2500
+COPY_GENERATOR_SEED = 0
+COPY_JOINT_STEPS = 400
+COPY_MECH_STEPS = 600
+HF_DRIVE_STEPS = 30
+HF_DRIVE_PASSAGES = 300  # the drive's synthetic corpus
+# the bars beside the JAX package's records (docs/BENCHMARKS.md:243-288):
+# EM with gold 0.81, last logged loss 0.14; zero shot EM 0.71, recall 1.0,
+# after 400 joint steps 0.715 / 1.0; the prior's recall@4 0.00 before and
+# after. The margins allow another init stream (Philox, not threefry)
+COPY_GOLD_EM_BAR = 0.75
+COPY_GEN_LOSS_MAX = 1.0
+COPY_ZERO_EM_BAR = 0.60
+COPY_ZERO_RECALL_BAR = 0.90
+COPY_JOINT_SLACK = 0.05
+MECH_BEFORE_MAX = 0.05
+HF_RECALL_SLACK = 0.02
+COPY_TIMEOUT_S = 900
+COPY_SIZES = ("COPY_N_TOPICS", "COPY_N_TRAIN_TOPICS",
+              "COPY_GENERATOR_STEPS", "COPY_GENERATOR_SEED",
+              "COPY_JOINT_STEPS", "COPY_MECH_STEPS", "HF_DRIVE_STEPS",
+              "COPY_GOLD_EM_BAR", "COPY_GEN_LOSS_MAX", "COPY_ZERO_EM_BAR",
+              "COPY_ZERO_RECALL_BAR", "COPY_JOINT_SLACK", "MECH_BEFORE_MAX",
+              "HF_RECALL_SLACK", "HF_DRIVE_PASSAGES")
+
+
+def copy_phase(torch, mt, dev, work) -> dict:
+    """Phase 32: the copy task's generator (``demo.copy_task``), the e2e
+    copy run and the JSA mechanism probe over an f32 index of its 26k
+    passages (B3, each demo's first scan held to its plain version), and
+    beside them, on a thread, the HF interop drive (its steps are
+    subprocesses: their kernels are not counted here)."""
+    from jsa_rag_tpu_torch.demo import (copy_task, e2e_copy, hf_interop,
+                                        jsa_mechanism)
+    from jsa_rag_tpu_torch.ops import mips
+
+    log(f"[32] the copy task at {COPY_N_TOPICS} passages: generator "
+        f"{COPY_GENERATOR_STEPS} steps, e2e {COPY_JOINT_STEPS} rag steps, "
+        f"the JSA mechanism probe {COPY_MECH_STEPS} steps; the HF interop "
+        f"drive ({HF_DRIVE_STEPS} steps)")
+    out = os.path.join(work, "copy32")
+    ck = os.path.join(out, "ck")
+    device = ["--device", dev.type]
+    t0 = time.perf_counter()
+    # the drive's steps are subprocesses: they run beside the demos
+    pool = ThreadPoolExecutor(1)
+    hf_run = pool.submit(hf_interop.main, [
+        "--work", os.path.join(out, "hf"), "--out",
+        os.path.join(out, "transcript-hf-interop.md"), "--steps",
+        str(HF_DRIVE_STEPS), *device])
+    data = copy_task.make_data(os.path.join(out, "data"), COPY_N_TOPICS,
+                               COPY_N_TRAIN_TOPICS)
+    gen = copy_task.main([
+        "--data", data, "--checkpoint_dir", ck, "--steps",
+        str(COPY_GENERATOR_STEPS), "--seed", str(COPY_GENERATOR_SEED),
+        *device])
+    t1 = time.perf_counter()
+    demo = ["--data", data, "--generator", gen["checkpoint"],
+            "--checkpoint_dir", ck, *device]
+    with recording(mips, "mips_topk_dense_t", 1) as scans:
+        mt.scan_topt_dense.launches = 0  # main path starts
+        joint = e2e_copy.main([*demo, "--out", os.path.join(
+            out, "metrics-e2e-copy.jsonl"), "--steps",
+            str(COPY_JOINT_STEPS)])
+        launches = {"e2e_copy": mt.scan_topt_dense.launches}  # ends
+    t2 = time.perf_counter()
+    max_err = compare_served(mt, scans[0], "the e2e copy run's first scan:")
+    del scans
+    with recording(mips, "mips_topk_dense_t", 1) as scans:
+        mt.scan_topt_dense.launches = 0  # main path starts
+        mech = jsa_mechanism.main([*demo, "--out", os.path.join(
+            out, "metrics-jsa-mechanism.jsonl"), "--steps",
+            str(COPY_MECH_STEPS)])
+        launches["jsa_mechanism"] = mt.scan_topt_dense.launches  # ends
+    t3 = time.perf_counter()
+    max_err = max(max_err, compare_served(
+        mt, scans[0], "the mechanism probe's first scan (the prior's "
+        "recall before):"))
+    del scans
+    hf = hf_run.result()
+    pool.shutdown()
+    seconds = {"data_and_generator": t1 - t0, "e2e_copy": t2 - t1,
+               "jsa_mechanism": t3 - t2,
+               "hf_interop": sum(s["seconds"] for s in hf["steps"]),
+               "hf_wait_after_demos": time.perf_counter() - t3}
+    z, a = joint["zero_shot"], joint["after"]
+    log(f"  generator: EM with gold {gen['em_with_gold_unseen']:.4f} (JAX "
+        f"0.81), logged losses {[round(v, 4) for _, v in gen['losses']]} "
+        f"(JAX's last 0.14)")
+    log(f"  e2e copy: zero shot EM {z['exact_match']:.4f} F1 {z['f1']:.4f} "
+        f"recall {z['retrieval_recall']:.4f} (JAX 0.71 / 1.0); after "
+        f"{joint['steps']} steps EM {a['exact_match']:.4f} F1 {a['f1']:.4f} "
+        f"recall {a['retrieval_recall']:.4f} (JAX 0.715 / 1.0); losses "
+        f"{[round(v, 4) for _, v in joint['losses']]}; B3 launches "
+        f"{launches['e2e_copy']}")
+    log(f"  JSA mechanism: prior recall@4 before {mech['recall@4_before']:.4f}"
+        f", after {mech['steps']} steps {mech['recall@4_after']:.4f} (JAX "
+        f"0.00 / 0.00); accept rates "
+        f"{[round(v, 3) for _, v in mech['accept_rates']]} (JAX 0.90 -> "
+        f"0.77); losses {[round(v, 4) for _, v in mech['losses']]}; B3 "
+        f"launches {launches['jsa_mechanism']}")
+    log("  HF drive: steps " + ", ".join(
+        f"{s['step'].split(' (')[0]} rc {s['rc']} {s['seconds']:.1f} s"
+        for s in hf["steps"]) + f"; tokenizers {hf['tokenizers']}; the "
+        f"round trip against the saved index {json.dumps(hf['roundtrip'])}; "
+        f"recall saved {hf['recall_saved']:.4f}, round-tripped "
+        f"{hf['recall_roundtrip']:.4f}")
+    log("  seconds " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    losses = [v for _, v in gen["losses"] + joint["losses"]
+              + mech["losses"]]
+    ml = [v for _, v in mech["losses"]]
+    bars = [
+        (gen["em_with_gold_unseen"] >= COPY_GOLD_EM_BAR,
+         f"generator EM with gold >= {COPY_GOLD_EM_BAR}"),
+        (bool(gen["losses"]) and gen["losses"][-1][1] < COPY_GEN_LOSS_MAX,
+         f"generator's last logged loss < {COPY_GEN_LOSS_MAX}"),
+        (z["exact_match"] >= COPY_ZERO_EM_BAR,
+         f"zero-shot EM >= {COPY_ZERO_EM_BAR}"),
+        (z["retrieval_recall"] >= COPY_ZERO_RECALL_BAR,
+         f"zero-shot recall >= {COPY_ZERO_RECALL_BAR}"),
+        (a["exact_match"] >= z["exact_match"] - COPY_JOINT_SLACK
+         and a["retrieval_recall"] >= z["retrieval_recall"]
+         - COPY_JOINT_SLACK,
+         f"joint EM and recall within {COPY_JOINT_SLACK} of zero shot"),
+        (mech["recall@4_before"] <= MECH_BEFORE_MAX,
+         f"the prior's recall@4 before <= {MECH_BEFORE_MAX}"),
+        (bool(mech["accept_rates"]) and all(
+            0 < v <= 1 for _, v in mech["accept_rates"]),
+         "every logged accept rate in (0, 1]"),
+        (len(ml) >= 2 and ml[-1] < ml[0],
+         "the mechanism's last logged loss below its first"),
+        (bool(losses) and all(math.isfinite(v) for v in losses),
+         "every logged loss finite"),
+        (all(s["rc"] == 0 for s in hf["steps"]) and len(hf["steps"]) == 6,
+         "every HF drive step rc 0"),
+        (hf["roundtrip"]["rows_equal"] and hf["roundtrip"]["passages_equal"]
+         and hf["roundtrip"]["rows"] == HF_DRIVE_PASSAGES,
+         f"the round trip holds the saved index's {HF_DRIVE_PASSAGES} rows "
+         "and passages row for row"),
+        (abs(hf["recall_roundtrip"] - hf["recall_saved"])
+         <= HF_RECALL_SLACK,
+         f"round-tripped recall within {HF_RECALL_SLACK} of the saved "
+         "index's"),
+        (min(launches.values()) >= 1, "both demos launched B3")]
+    for ok, what in bars:
+        log(f"  bar: {what}: {'ok' if ok else 'FAILED'}")
+    failed = [what for ok, what in bars if not ok]
+    if failed:
+        raise AssertionError(f"phase 32 misses: {failed}")
+    return {"generator": {k: gen[k] for k in ("em_with_gold_unseen", "f1",
+                                              "losses", "seconds")},
+            "e2e_copy": {"zero_shot": z, "after": a,
+                         "losses": joint["losses"],
+                         "seconds": joint["seconds"]},
+            "jsa_mechanism": {k: mech[k] for k in (
+                "recall@4_before", "recall@4_after", "accept_rates",
+                "losses", "seconds")},
+            "hf_interop": hf, "seconds": seconds, "launches": launches,
+            "max_abs_err": max_err}
+
+
+def copy_worker(cfg_path: str) -> None:
+    """Phase 32 in ``start_child``'s process."""
+    run_child(cfg_path, 32, copy_phase)
 
 
 # --------------------------------------------------------------- phase 30
@@ -5755,7 +6015,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    demo_started = None
+    children = []
     try:
         b1 = serve_phase(torch, mt, g, dev, work)
         phase_done("3-5")
@@ -5800,18 +6060,26 @@ def main() -> None:
         shutil.rmtree(os.path.join(work, "index_hybrid"), ignore_errors=True)
         phase_done("26")
         torch.cuda.empty_cache()
+        # phase 32 starts after phase 26, whose run peaks near phase 11's
+        # 66.3 GiB: beside phases 27-28 the card keeps room for its small
+        # models
+        children.append(start_child(dev, work, 32, "copy_worker",
+                                    COPY_SIZES))
         pair = pair_phase(torch, mt, dev, work, p8)
-        phase_done("27")
+        phase_done("27 (32 beside it)")
         torch.cuda.empty_cache()
-        demo_started = start_demo(dev, work)
+        children.append(start_child(dev, work, 29, "demo_worker",
+                                    DEMO_SIZES))
         shard = shard_phase(torch, mt, dev, work, p8)
-        phase_done("28 (29 beside it)")
-        demo29 = finish_demo(demo_started)
+        phase_done("28 (29 and 32 beside it)")
+        demo29 = finish_child(children[1], DEMO_TIMEOUT_S)
         phase_done("29 (after 28)")
+        copy32 = finish_child(children[0], COPY_TIMEOUT_S)
+        phase_done("32 (after 29)")
     finally:
-        if demo_started is not None and demo_started[0].poll() is None:
-            demo_started[0].kill()  # a failure before phase 29 was read
-            demo_started[0].wait()
+        for _, proc, _, _ in children:
+            if proc.poll() is None:
+                kill_child(proc)  # a failure before the child was read
         shutil.rmtree(work, ignore_errors=True)
     # this slice's launches: B1 on each rank's shard (phase 27), B2 in the
     # one-rank NCCL run (phase 26), B3 in the two-rank evaluate and rag
@@ -5844,6 +6112,9 @@ def main() -> None:
     bp = bench_phase(torch, mt, ms, dev, row_errs)
     rows = row_kernels(bp, row_errs)
     phase_done("19-20")
+    torch.cuda.empty_cache()
+    probes = probes_phase(torch, mt, dev)
+    phase_done("31")
     torch.cuda.empty_cache()
     hf = hf_phase(torch, mt, g, dev)
     phase_done("21-22")
@@ -5895,11 +6166,33 @@ def main() -> None:
     b1["launches_by_path"]["serve_bench_int8r"] = tools.pop("b1_launches")
     b1["launches"] = sum(b1["launches_by_path"].values())
     b1["max_abs_err"] = max(b1["max_abs_err"], tools.pop("b1_max_abs_err"))
+    # this slice's launches: the probes' mains (phase 31; B1-B6, the first
+    # call of each scan geometry held to its plain version) and the copy
+    # demos (phase 32; B3's f32 instance, each demo's first scan held to its
+    # plain version)
+    b5["launches_by_path"] = {"evaluate_f16_refine0": b5["launches"]}
+    b6 = rows[0]
+    b6["launches_by_path"] = {"bench_and_storage": b6["launches"]}
+    for kernel, entry in (("B1", b1), ("B2", b2), ("B3", b3), ("B4", b4),
+                          ("B5", b5), ("B6", b6)):
+        entry["launches_by_path"].update(
+            {path: counts[kernel] for path, counts in
+             probes["launches"].items() if counts[kernel]})
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   probes["max_abs_err"].get(kernel, 0.0))
+    b3["launches_by_path"].update(
+        {f"copy_{path}_f32": n for path, n in copy32.pop("launches").items()})
+    b3["max_abs_err"] = max(b3["max_abs_err"], copy32.pop("max_abs_err"))
+    for entry in (b1, b2, b3, b4, b5, b6):
+        entry["launches"] = sum(entry["launches_by_path"].values())
+    probes.pop("launches")
+    probes.pop("max_abs_err")
 
-    # phases 23-25 and 30 (no kernel of their own) and 29's metrics stand
-    # apart from the kernels line
+    # phases 23-25, 30 and 31 (no kernel of their own) and 29's and 32's
+    # metrics stand apart from the kernels line
     log(json.dumps({"ivf": ivf, "ivf_train": ivf_train, "atlas": atlas}))
     log(json.dumps({"demo_from_scratch": demo29, "tools": tools}))
+    log(json.dumps({"probes": probes, "copy_demos": copy32}))
     log(f"checks of phases 23-25: {len(CHECKS)}, all passed")
     for phase, what, ok in CHECKS:
         log(f"  [{phase}] {'ok' if ok else 'FAILED'}: {what}")

@@ -18,8 +18,29 @@ and the joint rag fine-tune over an index they build, on the data of
         --out out/metrics-e2e-hard.jsonl --checkpoint_dir out/ck
 
 The artifacts are the JAX scripts' pickles, key for key, so either package
-reads the other's. Every module runs on ``--device`` (default ``cuda``,
-which raises where there is none).
+reads the other's.
+
+The copy task (counterparts of ``docs/demo/e2e_copy_task.py``,
+``docs/demo/jsa_mechanism_demo.py`` and ``docs/demo/hf_interop_drive.py``;
+``scripts/make_copy_task_data.py`` without ``--hard``): ``copy_task``
+copy-pretrains the generator through the train entry and holds the setup
+both demos share, ``e2e_copy`` runs zero shot and joint rag training,
+``jsa_mechanism`` the JSA mechanism probe, and ``hf_interop`` drives the
+HF directories through training, evaluation and the Atlas round trip::
+
+    python -m jsa_rag_tpu_torch.demo.copy_task --data data/copy \
+        --checkpoint_dir out/ck     # the data: copy_task.make_data
+    python -m jsa_rag_tpu_torch.demo.e2e_copy --data data/copy \
+        --generator out/ck/copy-generator --checkpoint_dir out/ck \
+        --out out/metrics-e2e-copy.jsonl
+    python -m jsa_rag_tpu_torch.demo.jsa_mechanism --data data/copy \
+        --generator out/ck/copy-generator --checkpoint_dir out/ck \
+        --out out/metrics-jsa-mechanism.jsonl
+    python -m jsa_rag_tpu_torch.demo.hf_interop --work out/hf \
+        --out out/transcript-hf-interop.md
+
+Every module runs on ``--device`` (default ``cuda``, which raises where
+there is none).
 """
 
 import json

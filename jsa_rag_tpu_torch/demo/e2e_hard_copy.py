@@ -92,28 +92,33 @@ def main(argv=None) -> dict:
     model = RAGModel(opt, retriever, lm_cfg, tok, tok, store)
     index = ShardedFlatIndex(len(store), retriever.cfg.bert.hidden,
                              "float32", device=dev, method="pallas2")
-    tx = set_optim(opt, params)
-    dev_path = os.path.join(args.data, "dev.jsonl")
+    return zero_shot_then_joint(model, index, params, opt, args.out)
 
+
+def zero_shot_then_joint(model, index, params, opt, out: str) -> dict:
+    """Build the index, evaluate on ``opt.eval_data[0]`` (zero shot), train
+    ``opt.total_steps`` steps, evaluate again; write the two metric lines
+    to ``out``. -> {"zero_shot", "after", "losses", "steps", "seconds"}."""
+    dev_path = opt.eval_data[0]
     model.build_index(index, params)
     m0 = evaluate(model, index, params, opt, dev_path)
     print("zero shot:", {k: round(m0[k], 3) for k in METRICS}, flush=True)
     t0 = time.perf_counter()
-    step = train(model, index, params, tx, opt)
+    step = train(model, index, params, set_optim(opt, params), opt)
     seconds = time.perf_counter() - t0
     m1 = evaluate(model, index, params, opt, dev_path)
     print(f"after {step} joint steps:",
           {k: round(m1[k], 3) for k in METRICS}, flush=True)
 
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    with open(out, "w") as f:
         for phase, m in (("zero_shot", m0), (f"after_joint_{step}", m1)):
             f.write(json.dumps({"phase": phase,
                                 **{k: m[k] for k in METRICS}}) + "\n")
     return {"zero_shot": {k: m0[k] for k in METRICS},
             "after": {k: m1[k] for k in METRICS},
             "losses": metric_losses(os.path.join(
-                args.checkpoint_dir, opt.name, "metrics.jsonl")),
+                opt.checkpoint_dir, opt.name, "metrics.jsonl")),
             "steps": step, "seconds": seconds}
 
 
