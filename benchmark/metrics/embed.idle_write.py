@@ -1,0 +1,11 @@
+"""The rebuild's writes, as a share of the device's idle time, over the traced
+window (%): the device's idle time while the host was inside ``build.write``
+(``index/build.py``: the unsort and ``set_embeddings`` with its int8r
+quantiser) (``yardstick/spans.py::idle_under``); none where the trace holds
+no device activity or no such span."""
+
+from benchmark.yardstick import spans
+
+
+def read(rec):
+    return spans.idle_pct(rec.window.trace, ("build.write",))

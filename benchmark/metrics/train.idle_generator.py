@@ -1,0 +1,11 @@
+"""The generator's share of the device's idle time, over the traced window (%):
+the device's idle time while the host was inside ``jsa.generator``
+(``train/modes.py::_per_row_ce``: the generator's forward over the union's
+rows) (``yardstick/spans.py::idle_under``); none where the trace holds no
+device activity or no such span."""
+
+from benchmark.yardstick import spans
+
+
+def read(rec):
+    return spans.idle_pct(rec.window.trace, ("jsa.generator",))

@@ -1,0 +1,11 @@
+"""The jsa loss's towers' share of the device's idle time, over the traced
+window (%): the device's idle time while the host was inside ``jsa.towers``
+(``train/modes.py``: both query towers, the union's passage tower, the
+scores and softmaxes) (``yardstick/spans.py::idle_under``); none where the
+trace holds no device activity or no such span."""
+
+from benchmark.yardstick import spans
+
+
+def read(rec):
+    return spans.idle_pct(rec.window.trace, ("jsa.towers",))

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..data.passages import PassageStore, format_passage
+from ..utils import trace
 from .flat import ShardedFlatIndex
 
 
@@ -96,16 +97,21 @@ def build_index(
                    for span in spans[:prefetch]]
         next_submit = prefetch
         for _ in range(len(spans)):
-            start, stop, batches, inv = futures.pop(0).result()
+            with trace.span("build.wait_tokens"):
+                start, stop, batches, inv = futures.pop(0).result()
             if next_submit < len(spans):
                 futures.append(ex.submit(tokenize_window, spans[next_submit]))
                 next_submit += 1
-            embs = tuple(
-                encode_fn(torch.from_numpy(ids).to(dev),
-                          torch.from_numpy(mask).to(dev))
-                for ids, mask in batches)
-            block = _unsort_rows(embs, torch.from_numpy(inv).to(dev))
-            index.set_embeddings(start, block[: stop - start])
+            embs = []
+            for ids, mask in batches:
+                with trace.span("build.h2d"):
+                    ids = torch.from_numpy(ids).to(dev)
+                    mask = torch.from_numpy(mask).to(dev)
+                with trace.span("build.encode"):
+                    embs.append(encode_fn(ids, mask))
+            with trace.span("build.write"):
+                block = _unsort_rows(embs, torch.from_numpy(inv).to(dev))
+                index.set_embeddings(start, block[: stop - start])
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     stats = {}
@@ -124,7 +130,7 @@ def build_index(
     }
 
 
-def _unsort_rows(blocks: tuple, inv: torch.Tensor) -> torch.Tensor:
+def _unsort_rows(blocks: list, inv: torch.Tensor) -> torch.Tensor:
     """Concat a window's sorted embed batches and restore corpus order."""
     return torch.cat(blocks, dim=0)[inv]
 

@@ -67,6 +67,7 @@ from ..ops.mips_topt import (NEG_INF, hybrid_int8_from_f16,
                              mips_topk_int8_t, quantize_int8,
                              quantize_int8_residual)
 from ..parallel import mesh
+from ..utils import trace
 from ._npio import np_save, to_host
 
 DENSE = {"float16": torch.float16, "bfloat16": torch.bfloat16,
@@ -89,14 +90,15 @@ def _shard_search(q, *ops, scan, k, n_true, shard, shard_rows, n_padded):
     shard_rows, 0, shard_rows)`` and ``pool_n`` from the worst-case pads;
     the ids offset to global rows, placeholders (-1) kept, anything out of
     range masked; then ``merge_shards``."""
-    n_valid = min(max(n_true - shard * shard_rows, 0), shard_rows)
-    max_pads = min(shard_rows, n_padded - n_true)
-    scores, local = scan(q, *ops, kk=min(shard_rows, k), valid_n=n_valid,
-                         pool_n=max(1, shard_rows - max_pads))
-    local = local.to(torch.int32)
-    gidx = torch.where(local < 0, -1, local + shard * shard_rows)
-    scores = torch.where((gidx >= 0) & (gidx < n_true), scores, NEG_INF)
-    return merge_shards(scores, gidx, k)
+    with trace.span("index.shard_search"):
+        n_valid = min(max(n_true - shard * shard_rows, 0), shard_rows)
+        max_pads = min(shard_rows, n_padded - n_true)
+        scores, local = scan(q, *ops, kk=min(shard_rows, k), valid_n=n_valid,
+                             pool_n=max(1, shard_rows - max_pads))
+        local = local.to(torch.int32)
+        gidx = torch.where(local < 0, -1, local + shard * shard_rows)
+        scores = torch.where((gidx >= 0) & (gidx < n_true), scores, NEG_INF)
+        return merge_shards(scores, gidx, k)
 
 
 def merge_shards(scores, ids, k: int):
@@ -257,13 +259,14 @@ class ShardedFlatIndex:
         (the rows are gathered, padded to the largest B, searched as one
         batch, and each rank takes back its own, ``_search_multiprocess``,
         ``flat.py:465``)."""
-        k = min(k, self.n_passages)
-        q = torch.as_tensor(queries).to(self.device, torch.float32)
-        all_q, counts = mesh.all_gather_ragged(q)
-        lo = self.shard * all_q.shape[1]
-        fn, ops = self.fused_search_fn(k)
-        s, i = fn(all_q.reshape(-1, self.dim), *ops)
-        return s[lo:lo + q.shape[0]], i[lo:lo + q.shape[0]]
+        with trace.span("index.search"):
+            k = min(k, self.n_passages)
+            q = torch.as_tensor(queries).to(self.device, torch.float32)
+            all_q, counts = mesh.all_gather_ragged(q)
+            lo = self.shard * all_q.shape[1]
+            fn, ops = self.fused_search_fn(k)
+            s, i = fn(all_q.reshape(-1, self.dim), *ops)
+            return s[lo:lo + q.shape[0]], i[lo:lo + q.shape[0]]
 
     def fused_search_fn(self, k: int):
         """(search fn, storage operands): ``fn(queries, *operands)`` runs

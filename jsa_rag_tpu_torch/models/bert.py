@@ -32,6 +32,8 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from ..utils import trace
+
 # geometry presets, copied from jsa_rag_tpu/model_io.py:35-43
 BERT_PRESETS = {
     "tiny": dict(hidden=64, layers=2, heads=4, intermediate=128),
@@ -90,9 +92,10 @@ def dropout(x, rate: float, seed: int | None):
     ``rate == 0``."""
     if seed is None or rate == 0.0:
         return x
-    g = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+    with trace.span("dropout.mask"):
+        g = torch.Generator(device=x.device).manual_seed(seed)
+        keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+        return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 def _layer_norm(x, scale, bias, eps):

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..device import exact_f32_matmul
+from ..utils import trace
 from ._build import load_libraries
 
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -983,11 +984,16 @@ def mips_topk_int8r_t(
     k_sel = min(refine * k, n)
     valid_n = n if valid_n is None else int(valid_n)
     tile_n, t = scan_geometry(n, k_sel, pool_n, tile_n, t_per_tile)
-    q = queries.to(torch.float32)
-    qv1, qs1, qv2, qs2 = quantize_int8_residual(q)
-    cand_s, cand_i = scan_topt_int8r2(qv1, qs1, qv2, qs2, emb_rows,
-                                      emb_scale, valid_n, tile_n, t)
-    cand_s = cand_s.permute(1, 0, 2).reshape(b, -1)
-    cand_i = cand_i.permute(1, 0, 2).reshape(b, -1)
-    vals, ids = _merge_candidates(cand_s, cand_i, k_sel, b)
-    return _int8r_rows_refine(q, vals, res_rows, res_scale, ids, k, valid_n)
+    with trace.span("mips.quantize"):
+        q = queries.to(torch.float32)
+        qv1, qs1, qv2, qs2 = quantize_int8_residual(q)
+    with trace.span("mips.scan"):
+        cand_s, cand_i = scan_topt_int8r2(qv1, qs1, qv2, qs2, emb_rows,
+                                          emb_scale, valid_n, tile_n, t)
+        cand_s = cand_s.permute(1, 0, 2).reshape(b, -1)
+        cand_i = cand_i.permute(1, 0, 2).reshape(b, -1)
+    with trace.span("mips.merge"):
+        vals, ids = _merge_candidates(cand_s, cand_i, k_sel, b)
+    with trace.span("mips.refine"):
+        return _int8r_rows_refine(q, vals, res_rows, res_scale, ids, k,
+                                  valid_n)

@@ -44,9 +44,10 @@ from ``--seed``.
 ``--profile_steps a-b`` runs ``torch.profiler`` (CPU, and CUDA on the card)
 from the start of step a to the start of step b, as the JAX package brackets
 ``jax.profiler`` (``loop.py:174-180``), and writes a Chrome trace under
-``<checkpoint>/profile``; inside the span ``record_function`` marks
-``retrieve+tokenize``, ``prefetch_retrieve`` and each step's ``train``.
-Without the flag nothing is profiled or marked.
+``<checkpoint>/profile``. The trace holds the loop's ranges
+``retrieve+tokenize``, ``prefetch_retrieve`` and each step's ``train``, and
+inside them every span of the program (``utils/trace.py``). Without the
+flag nothing is profiled or marked.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ from ..config import Options
 from ..index.refresh import IncrementalIndexRefresher
 from ..parallel import mesh
 from ..tasks import get_task
+from ..utils import trace
 from ..utils.schedulers import IndexRefreshScheduler
 from ..utils.stats import WeightedAvgStats
 from .checkpoint import (export_retriever, save_checkpoint,
@@ -86,8 +88,7 @@ def train_mode_of(opt: Options) -> str:
 class StepProfiler:
     """``torch.profiler`` over steps [a, b) of ``--profile_steps a-b``:
     ``at_step`` starts it at step a and stops it, writing the trace, at
-    step b; ``span(name)`` is a ``record_function`` while it runs and a
-    no-op otherwise."""
+    step b. While it runs, ``utils.trace.span`` records."""
 
     def __init__(self, profile_steps: str, out_dir: str,
                  device: torch.device):
@@ -118,11 +119,6 @@ class StepProfiler:
         self.prof.export_chrome_trace(path)
         self.prof = None
         logger.info("profiler trace written to %s", path)
-
-    def span(self, name: str):
-        if self.prof is None:
-            return contextlib.nullcontext()
-        return torch.profiler.record_function(name)
 
 
 def train(model, index, params: dict, tx: AdamW, opt: Options,
@@ -283,7 +279,7 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                 retrieval = (prefetched[0] if prefetched is not None
                              and prefetched[1] == index_version else None)
                 t0 = time.time()
-                with profiler.span("retrieve+tokenize"):
+                with trace.span("retrieve+tokenize"):
                     train_batch = model.build_batch(
                         mode, index, params, queries, targets, iter_stats,
                         file_passages=batch.get("passages"),
@@ -299,7 +295,7 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                         and not mesh.any_rank(next_batch is None)):
                     # the next batch's candidates from the pre-step params
                     t0 = time.time()
-                    with profiler.span("prefetch_retrieve"):
+                    with trace.span("prefetch_retrieve"):
                         prefetched = (model.retrieval_ctx(
                             mode, index, params, next_batch["query"],
                             next_batch["target"], iter_stats,
@@ -310,7 +306,7 @@ def train(model, index, params: dict, tx: AdamW, opt: Options,
                         time.time() - t0, 1)
 
                 t0 = time.time()
-                with profiler.span("train"):
+                with trace.span("train"):
                     loss, aux = train_step(params, train_batch, rng)
                 # host time to enqueue the step; the device finishes later
                 iter_stats["runtime/fwdbwd+update"] = (time.time() - t0, 1)

@@ -25,6 +25,7 @@ import torch
 from ..models.lm import LMConfig, lm_loss
 from ..models.lora import LoRAConfig, gen_params
 from ..models.retriever import DualEncoderRetriever
+from ..utils import trace
 
 NEG_INF = -1e30
 
@@ -232,25 +233,31 @@ def jsa_loss(fns: ApplyFns, params, batch, rng: StepRng | None):
     b, u, _ = batch["union_passage_ids"].shape
     drop = _dropout_rng(fns, rng)
 
-    prior_q = prior.embed_queries(batch["q_ids"], batch["q_mask"], rng=drop)
-    post_q = post.embed_queries(batch["post_q_ids"], batch["post_q_mask"],
+    with trace.span("jsa.towers"):
+        prior_q = prior.embed_queries(batch["q_ids"], batch["q_mask"],
+                                      rng=drop)
+        post_q = post.embed_queries(batch["post_q_ids"], batch["post_q_mask"],
+                                    rng=drop)
+        # the union embedded with the posterior's passage tower for both
+        # scores (reference: src/rag.py:1855-1875)
+        union_emb = _embed_rows(post, batch["union_passage_ids"],
+                                batch["union_passage_mask"], is_passages=True,
                                 rng=drop)
-    # the union embedded with the posterior's passage tower for both scores
-    # (reference: src/rag.py:1855-1875)
-    union_emb = _embed_rows(post, batch["union_passage_ids"],
-                            batch["union_passage_mask"], is_passages=True,
-                            rng=drop)
-    valid = batch["union_valid"]
-    prior_logits = torch.where(
-        valid, _doc_scores(prior_q, union_emb) / fns.temperature_jsa, NEG_INF)
-    post_logits = torch.where(
-        valid, _doc_scores(post_q, union_emb) / fns.temperature_jsa, NEG_INF)
-    prior_probs = torch.softmax(prior_logits, dim=-1)
-    post_probs = torch.softmax(post_logits, dim=-1)
+        valid = batch["union_valid"]
+        prior_logits = torch.where(
+            valid, _doc_scores(prior_q, union_emb) / fns.temperature_jsa,
+            NEG_INF)
+        post_logits = torch.where(
+            valid, _doc_scores(post_q, union_emb) / fns.temperature_jsa,
+            NEG_INF)
+        prior_probs = torch.softmax(prior_logits, dim=-1)
+        post_probs = torch.softmax(post_logits, dim=-1)
 
     # one generator forward over every unique candidate, with gradient
-    per_seq = _per_row_ce(fns, params, batch["gen_ids"], batch["gen_labels"],
-                          batch["gen_mask"], rng=drop)
+    with trace.span("jsa.generator"):
+        per_seq = _per_row_ce(fns, params, batch["gen_ids"],
+                              batch["gen_labels"], batch["gen_mask"],
+                              rng=drop)
     ce = per_seq.reshape(b, u)
     log_lm = (-ce).detach()  # get_llm_score (src/rag.py:2328)
     post_sg = post_probs.detach()
@@ -260,23 +267,26 @@ def jsa_loss(fns: ApplyFns, params, batch, rng: StepRng | None):
         probabilities = post_sg
         accept_rate = torch.ones((), device=ce.device)
     else:
-        proposals, uniforms = draw_mis(rng.mis, post_sg, fns.mis_step)
-        sampled, accept_rate, chain_info = mis_chain(
-            post_sg, prior_sg, log_lm, proposals, uniforms,
-            temperature_lm=fns.temperature_lm, eps=fns.eps)
-        if fns.use_all_mis:
-            probabilities = empirical_distribution(sampled, u)
-        else:
-            # last-K chain states, uniform weights (src/rag.py:2008)
-            k_last = max(min(fns.mis_step, fns.n_context), 1)
-            probabilities = empirical_distribution(sampled, u, last_k=k_last)
-        if fns.mis_topk:
-            # keep the mis_topk most-sampled candidates, not renormalised
-            # (src/rag.py:1981-1986)
-            topk = min(fns.mis_topk, probabilities.shape[-1])
-            thresh = -torch.sort(-probabilities, dim=-1).values[:, topk - 1]
-            probabilities = torch.where(probabilities >= thresh[:, None],
-                                        probabilities, 0.0)
+        with trace.span("jsa.mis"):
+            proposals, uniforms = draw_mis(rng.mis, post_sg, fns.mis_step)
+            sampled, accept_rate, chain_info = mis_chain(
+                post_sg, prior_sg, log_lm, proposals, uniforms,
+                temperature_lm=fns.temperature_lm, eps=fns.eps)
+            if fns.use_all_mis:
+                probabilities = empirical_distribution(sampled, u)
+            else:
+                # last-K chain states, uniform weights (src/rag.py:2008)
+                k_last = max(min(fns.mis_step, fns.n_context), 1)
+                probabilities = empirical_distribution(sampled, u,
+                                                       last_k=k_last)
+            if fns.mis_topk:
+                # keep the mis_topk most-sampled candidates, not
+                # renormalised (src/rag.py:1981-1986)
+                topk = min(fns.mis_topk, probabilities.shape[-1])
+                thresh = -torch.sort(-probabilities,
+                                     dim=-1).values[:, topk - 1]
+                probabilities = torch.where(
+                    probabilities >= thresh[:, None], probabilities, 0.0)
 
     gen_term = torch.sum(probabilities * ce, dim=-1)  # (B,)
     if fns.contrastive:

@@ -39,6 +39,7 @@ from ..models.lm import (LMConfig, beam_generate, greedy_generate,
 from ..models.lora import LoRAConfig
 from ..models.retriever import DualEncoderRetriever
 from ..parallel.mesh import process_count
+from ..utils import trace
 from .modes import MODE_LOSSES, ApplyFns
 
 BERT_MAX_SEQ_LENGTH = 512  # reference: src/rag.py:40
@@ -146,11 +147,13 @@ class RAGModel:
     def embed_queries(self, params, texts, posterior: bool = False):
         """(B,) texts -> (B, H) query embeddings on the model's device
         (retrieval: no autograd)."""
-        ids, mask = self.retriever_tokenize(texts)
-        tower = (self._posterior_params(params) if posterior
-                 else params["retriever"])
-        with torch.no_grad():
-            return tower.embed_queries(self._tensor(ids), self._tensor(mask))
+        with trace.span("rag.embed_queries"):
+            ids, mask = self.retriever_tokenize(texts)
+            tower = (self._posterior_params(params) if posterior
+                     else params["retriever"])
+            with torch.no_grad():
+                return tower.embed_queries(self._tensor(ids),
+                                           self._tensor(mask))
 
     def retrieve(self, index, params, queries: list[str], topk: int,
                  posterior: bool = False, iter_stats: dict | None = None,
@@ -168,8 +171,10 @@ class RAGModel:
                                                 fetch_k, posterior)
         else:
             scores, ids = index.search(q_emb, fetch_k)
-            ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
-        passages = self.passage_texts(ids)
+        with trace.span("rag.fetch_ids"):
+            if not self.opt.retrieve_with_rerank:  # the rerank's are on host
+                ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
+            passages = self.passage_texts(ids)
         if filtering_fun is not None:
             passages, score_lists = filtering_fun(
                 batch_metadata, passages,
@@ -313,13 +318,14 @@ class RAGModel:
         search, store_ops = index.fused_search_fn(min(topk,
                                                       index.n_passages))
         _, ids = search(q_all, *store_ops)
-        ids = ids.cpu().numpy()
-        b = len(queries)
-        prior_ids, post_ids = ids[:b], ids[b:]
-        if iter_stats is not None:
-            iter_stats["runtime/search"] = (time.time() - t0, 1)
-        return (prior_ids, post_ids, self.passage_texts(prior_ids),
-                self.passage_texts(post_ids))
+        with trace.span("rag.fetch_ids"):
+            ids = ids.cpu().numpy()
+            b = len(queries)
+            prior_ids, post_ids = ids[:b], ids[b:]
+            if iter_stats is not None:
+                iter_stats["runtime/search"] = (time.time() - t0, 1)
+            return (prior_ids, post_ids, self.passage_texts(prior_ids),
+                    self.passage_texts(post_ids))
 
     @staticmethod
     def build_union(post_ids: np.ndarray, prior_ids: np.ndarray):
@@ -388,14 +394,16 @@ class RAGModel:
                 index, params, post_queries, topk, posterior=True, **retr_kw)
             prior_ids, _, _ = self.retrieve(index, params, queries_r, topk,
                                             **retr_kw)
-            union, valid = self.build_union(post_ids, prior_ids)
-            u_passages = self.passage_texts(union)
+            with trace.span("rag.union"):
+                union, valid = self.build_union(post_ids, prior_ids)
+                u_passages = self.passage_texts(union)
         else:
             prior_ids, post_ids, prior_passages, post_passages = \
                 self.retrieve_pair(index, params, queries_r, post_queries,
                                    topk, iter_stats=iter_stats)
-            union, valid = self.build_union(post_ids, prior_ids)
-            u_passages = self.passage_texts(union)
+            with trace.span("rag.union"):
+                union, valid = self.build_union(post_ids, prior_ids)
+                u_passages = self.passage_texts(union)
             ctx["last_info"].update({
                 "prior_retrieved_ids": prior_ids[0].tolist(),
                 "post_retrieved_ids": post_ids[0].tolist(),
@@ -416,12 +424,22 @@ class RAGModel:
         instead of searching here."""
         if mode not in MODE_LOSSES:
             raise ValueError(f"unknown mode {mode!r}")
-        if retrieval is None:
-            retrieval = self.retrieval_ctx(
-                mode, index, params, queries, targets,
-                iter_stats=iter_stats, file_passages=file_passages,
-                batch_metadata=batch_metadata, filtering_fun=filtering_fun)
-        self.last_info = retrieval["last_info"]
+        with trace.span("rag.build_batch"):
+            if retrieval is None:
+                retrieval = self.retrieval_ctx(
+                    mode, index, params, queries, targets,
+                    iter_stats=iter_stats, file_passages=file_passages,
+                    batch_metadata=batch_metadata,
+                    filtering_fun=filtering_fun)
+            self.last_info = retrieval["last_info"]
+            with trace.span("rag.tokenize"):
+                return self._tokenized_batch(mode, retrieval, queries,
+                                             targets)
+
+    def _tokenized_batch(self, mode: str, retrieval: dict, queries,
+                         targets) -> dict:
+        """``build_batch``'s tokenisation of a retrieval: the retriever's
+        and the generator's rows of ``mode``, on the model's device."""
         t = self._tensor
         if mode == "concat":
             g = self._generator_rows(queries, retrieval["passages"], targets)
@@ -499,8 +517,10 @@ class RAGModel:
         loss_fn = MODE_LOSSES[mode]
 
         def value_and_grad(params, batch, rng, leaves):
-            loss, aux = loss_fn(self.fns, params, batch, rng)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with trace.span("step.loss"):
+                loss, aux = loss_fn(self.fns, params, batch, rng)
+            with trace.span("step.grad"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             return (loss.detach(), aux), grads
 
         return value_and_grad

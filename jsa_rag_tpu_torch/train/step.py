@@ -43,6 +43,7 @@ from ..config import Options
 from ..models.lm import with_tensor_parallel
 from ..parallel import mesh, sharding
 from ..parallel.sharding import DATA, INDEX
+from ..utils import trace
 from .modes import MODE_LOSSES
 from .optim import AdamW, named_leaves
 
@@ -356,11 +357,13 @@ def make_train_step(model, mode: str, tx: AdamW):
             full[i] = g
         del grads
         if reducer is not None:
-            reducer(full)
-            loss, aux = average_over_ranks(loss, aux)
+            with trace.span("step.reduce"):
+                reducer(full)
+                loss, aux = average_over_ranks(loss, aux)
         if placement is not None:
             placement.shard_((DATA,))
-        tx.step(full)
+        with trace.span("step.update"):
+            tx.step(full)
         return loss, aux
 
     train_step.reducer = reducer
