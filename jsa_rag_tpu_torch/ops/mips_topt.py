@@ -378,6 +378,14 @@ INT8_QROWS = 128  # A rows a unit of the int8 core (wgmma_scan.cuh::CfgS8)
 _INT8_RING = 232_448 - 1024 - 4 * 1024 - 1024
 _TILE = 256  # index rows a unit
 _MAX_STAGES = 8
+# csrc/topt_int8r2.cu's schedules, by their number there, which follow the
+# query planes: "serial" (B2, one plane) emits a unit after its products;
+# "overlap" (B1, two planes) hands each unit's scores to two emit warps
+# through a score tile of 64 rows of 260 f32 in shared memory, which takes
+# that much from its ring
+INT8_SCHEDULES = ("serial", "overlap")
+_RINGS = {"serial": _INT8_RING, "overlap": _INT8_RING - 64 * 260 * 4}
+_THREADS = {"serial": 256 + 32, "overlap": 256 + 64 + 32}
 
 
 def int8_scan_geometry(b: int, planes: int, n_rows: int, sms: int) -> dict:
@@ -386,15 +394,19 @@ def int8_scan_geometry(b: int, planes: int, n_rows: int, sms: int) -> dict:
     SMs (a pure mirror of its ``geometry``; the card tests compare it with
     ``topt_int8_geometry``): the A plane's rows, the query rows a stage's
     TMA box loads, the tiles of 128 A rows, the ring's stages, the units
-    (query tile fastest) and the persistent grid."""
+    (query tile fastest), the persistent grid, the schedule ("overlap" for
+    B1's two planes, "serial" for B2's one) and the block's threads; the
+    ring's stages are those of the schedule."""
     a_rows = b if planes == 1 else 2 * _round_up(b, 8)
     qbox = INT8_QROWS if a_rows >= INT8_QROWS else _round_up(a_rows, 8)
     stage = _round_up(qbox * 128, 1024) + _TILE * 128
     q_tiles = -(-a_rows // INT8_QROWS)
     units = q_tiles * -(-n_rows // _TILE)
+    schedule = INT8_SCHEDULES[planes - 1]
     return {"a_rows": a_rows, "qbox": qbox, "q_tiles": q_tiles,
-            "stages": min(_MAX_STAGES, _INT8_RING // stage),
-            "units": units, "grid": min(units, sms)}
+            "stages": min(_MAX_STAGES, _RINGS[schedule] // stage),
+            "units": units, "grid": min(units, sms), "schedule": schedule,
+            "threads": _THREADS[schedule]}
 
 
 def scan_topt_int8r2(qv1, qs1, qv2, qs2, emb, es, valid_n: int,

@@ -179,32 +179,38 @@ def test_int8_kernel_grid_past_65535_index_tiles(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["B1", "B2"])
-@pytest.mark.parametrize("b", [1, 2, 8, 63, 64, 65, 257, 512])
-def test_int8_kernels_batch_sizes(cuda, kernel, b):
+@pytest.mark.parametrize("b", [1, 2, 8, 63, 64, 65, 257, 512, 1000])
+@pytest.mark.parametrize("d,tile,t", [(1024, 256, 4), (1024, 128, None),
+                                      (80, 128, 3), (80, 256, None)])
+def test_int8_kernels_batch_sizes(cuda, kernel, b, d, tile, t):
     """B1 and B2 on the int8 wgmma core at every batch size of its query
     tiles (64 queries a unit for B1's interleaved planes, 128 for B2; 63,
-    65 and 257 end in a partial tile, 1-8 load only their own rows), at
-    valid_n < N with a ragged last tile: the candidates' scores equal the
-    plain version's bit for bit, ids equal except among tied scores."""
-    g = torch.Generator(device=cuda).manual_seed(b + len(kernel) + 29)
-    n, nv, d = 20_000 - 37, 19_990 - 37, 1024
+    65, 257 and 1000 end in a partial tile, 1-8 load only their own rows;
+    B1 on the overlapped schedule at every one), at valid_n < N over an odd
+    number of index tiles with a ragged last one, at emit tiles 256 and
+    128, at d = 80 (one short stage a unit), at T of 3 and 4 and of 400
+    candidates: the candidates' scores equal the plain version's bit for
+    bit, ids equal except among tied scores."""
+    g = torch.Generator(device=cuda).manual_seed(b + len(kernel) + d + 29)
+    n = 79 * 256 - 5  # 79 index tiles, the last ragged
+    nv = n - 60
     v1, s1, _, _ = tp2.quantize_int8_residual(
         torch.randn((n, d), generator=g, device=cuda))
     qv1, qs1, qv2, qs2 = tp2.quantize_int8_residual(
         torch.randn((b, d), generator=g, device=cuda))
-    t = tp2._pool_t(400, nv, 256, 4)
+    t = t or tp2._pool_t(400, nv, tile, 4)
     if kernel == "B1":
         scan, plain = tp2.scan_topt_int8r2, tp2.scan_topt_int8r2_plain
-        args = (qv1, qs1, qv2, qs2, v1, s1.reshape(1, -1), nv, 256, t)
+        args = (qv1, qs1, qv2, qs2, v1, s1.reshape(1, -1), nv, tile, t)
     else:
         scan, plain = tp2.scan_topt_int8, tp2.scan_topt_int8_plain
-        args = (qv1, qs1, v1, s1.reshape(1, -1), nv, 256, t)
+        args = (qv1, qs1, v1, s1.reshape(1, -1), nv, tile, t)
     before = scan.launches
     ks, ki = scan(*args)
     ps, pi = plain(*args)
     torch.cuda.synchronize()
     assert scan.launches == before + 1
-    assert ks.shape == (-(-n // 256), b, t) and int(ki.max()) < nv
+    assert ks.shape == (-(-n // tile), b, t) and int(ki.max()) < nv
     _assert_same_candidates(ks, ki, ps, pi)
 
 
@@ -212,20 +218,24 @@ def test_int8_kernels_batch_sizes(cuda, kernel, b):
 def test_int8_geometry_mirrors_the_library(cuda):
     """``int8_scan_geometry`` (pure Python) equals what
     ``csrc/topt_int8r2.cu`` computes for a launch: the query box, the query
-    tiles, the ring's stages and the persistent grid."""
+    tiles, the ring's stages, the persistent grid, the schedule and the
+    block's threads."""
     import ctypes
 
     lib = tp2._kernel_libs()["topt_int8r2"]
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 6)()
     for planes in (1, 2):
-        for b in (1, 2, 7, 8, 9, 63, 64, 65, 127, 128, 129, 257, 512, 4096):
+        for b in (1, 2, 7, 8, 9, 63, 64, 65, 127, 128, 129, 257, 512, 1000,
+                  4096):
             for n_rows, sms in ((1, 132), (300, 132), (1_300_000, 132),
-                                (4096, 7)):
+                                (79 * 256 - 5, 132), (4096, 7)):
                 assert lib.topt_int8_geometry(b, planes, n_rows, sms,
                                               out) == 0
                 g = tp2.int8_scan_geometry(b, planes, n_rows, sms)
-                assert list(out) == [g["qbox"], g["q_tiles"], g["stages"],
-                                     g["grid"]], (planes, b, n_rows, sms)
+                assert list(out) == [
+                    g["qbox"], g["q_tiles"], g["stages"], g["grid"],
+                    tp2.INT8_SCHEDULES.index(g["schedule"]), g["threads"]
+                ], (planes, b, n_rows, sms)
 
 
 @pytest.mark.cuda

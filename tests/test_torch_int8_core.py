@@ -102,14 +102,19 @@ def test_interleaved_emulation_equals_plain(planes, b, n, nv, d, k_sel,
 
 @pytest.mark.parametrize("planes", [1, 2])
 @pytest.mark.parametrize("b", [1, 2, 8, 63, 64, 65, 127, 128, 129, 257, 512,
-                               4096])
+                               1000, 4096])
 def test_geometry_invariants(planes, b):
-    """The geometry's mirror: a ring of 4 to 8 stages that fits the block's
-    shared memory beside the row scales' buffers, a query box of whole 8-row groups that covers the batch's
-    A rows or one tile of 128, query tiles covering every A row, and the
-    persistent blocks' walk (u = block, block + grid, ...) visiting every
-    (query tile, index tile) exactly once."""
+    """The geometry's mirror: a ring of 4 to 8 stages (3 or more beside
+    "overlap"'s score tile), as deep as fits the block's shared memory
+    beside the row scales' buffers (a stage holds 128 bytes of d, so the
+    layout is that of every d), a query box of whole 8-row groups that
+    covers the batch's A rows or one tile of 128, query tiles covering
+    every A row, the block of the schedule, and the persistent blocks'
+    walk (u = block, block + grid, ...) visiting every (query tile, index
+    tile) exactly once, also where the grid divides neither the units nor
+    the index tiles (132 SMs over odd tile counts)."""
     for n_rows, sms in ((1, 132), (300, 132), (20_000 - 37, 132),
+                        (79 * 256 - 5, 132), (131 * 256 + 1, 132),
                         (1_300_000, 132), (4096, 7)):
         g = tp2.int8_scan_geometry(b, planes, n_rows, sms)
         a_rows = b if planes == 1 else 2 * (-(-b // 8) * 8)
@@ -117,14 +122,23 @@ def test_geometry_invariants(planes, b):
         assert g["qbox"] % 8 == 0 and g["qbox"] <= tp2.INT8_QROWS
         assert g["qbox"] >= min(a_rows, tp2.INT8_QROWS)
         stage = -(-g["qbox"] * 128 // 1024) * 1024 + 256 * 128
-        assert 4 <= g["stages"] <= 8
-        # barriers, the stages, 4 units' row scales, alignment slack
-        assert 1024 + g["stages"] * stage + 4 * 1024 + 1024 <= 232_448
+        # "overlap" gives a score tile of 64 rows of 260 f32 the room of a
+        # ring stage and more
+        tile = 64 * 260 * 4 if g["schedule"] == "overlap" else 0
+        assert (3 if tile else 4) <= g["stages"] <= 8
+        # barriers, the stages, 4 units' row scales, the score tile,
+        # alignment slack
+        assert 1024 + g["stages"] * stage + 4 * 1024 + tile + 1024 <= 232_448
+        assert 1024 + (g["stages"] + 1) * stage + 4 * 1024 + tile + 1024 > (
+            232_448) or g["stages"] == 8
         assert g["q_tiles"] * tp2.INT8_QROWS >= a_rows
         assert (g["q_tiles"] - 1) * tp2.INT8_QROWS < a_rows
         # every query's A rows lie in one query tile
         per_tile = tp2.INT8_QROWS // planes
         assert g["q_tiles"] == -(-b // per_tile)
+        # two consumer warpgroups and a producer warp; "overlap": two emit
+        # warps beside them
+        assert g["threads"] == {"serial": 288, "overlap": 352}[g["schedule"]]
         n_tiles = -(-n_rows // 256)
         assert g["units"] == g["q_tiles"] * n_tiles
         assert g["grid"] == min(g["units"], sms)
@@ -138,12 +152,18 @@ def test_geometry_invariants(planes, b):
 
 def test_geometry_small_batches_deepen_the_ring():
     """A batch within one tile loads only its own query rows, so the ring
-    holds more, shorter stages: 6 at B = 2 (B1's 16 A rows or B2's 8), 4
-    for a full tile of 128 A rows."""
-    assert tp2.int8_scan_geometry(2, 1, 10_000, 132)["stages"] == 6
-    assert tp2.int8_scan_geometry(2, 2, 10_000, 132)["stages"] == 6
-    assert tp2.int8_scan_geometry(512, 1, 10_000, 132)["stages"] == 4
-    assert tp2.int8_scan_geometry(512, 2, 10_000, 132)["stages"] == 4
+    holds more, shorter stages: B2 6 at B = 2 (8 A rows) and 4 for a full
+    tile of 128 A rows; B1, whose overlapped schedule keeps a score tile
+    beside the ring, 4 at B = 2 (16 A rows) and 3 for a full tile. B1
+    overlaps at every batch, B2 at none."""
+    geo = tp2.int8_scan_geometry
+    assert geo(2, 1, 10_000, 132)["stages"] == 6
+    assert geo(2, 2, 10_000, 132)["stages"] == 4
+    assert geo(512, 1, 10_000, 132)["stages"] == 4
+    assert geo(512, 2, 10_000, 132)["stages"] == 3
     # B1 packs 64 queries a unit, B2 128
-    assert tp2.int8_scan_geometry(512, 2, 256, 132)["q_tiles"] == 8
-    assert tp2.int8_scan_geometry(512, 1, 256, 132)["q_tiles"] == 4
+    assert geo(512, 2, 256, 132)["q_tiles"] == 8
+    assert geo(512, 1, 256, 132)["q_tiles"] == 4
+    for b in (1, 2, 64, 65, 512, 4096):
+        assert geo(b, 2, 10_000, 132)["schedule"] == "overlap"
+        assert geo(b, 1, 10_000, 132)["schedule"] == "serial"
