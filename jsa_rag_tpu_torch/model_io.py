@@ -15,7 +15,8 @@ imported tower, ``from_towers(tower, tower)``, and an HF generator computes
 in bf16 as ``lm_config_from_hf`` sets it), else from the geometry presets
 with a seeded ``torch.Generator`` on ``--device`` (the JAX package's
 threefry and torch's Philox give different numbers from one seed; a
-``--generator_model_type gpt*`` preset is the gpt2 architecture). Under a
+``--generator_model_type gpt*`` preset is the gpt2 architecture, a
+``deepseek*`` one deepseek_v2's, from ``DEEPSEEK_PRESETS``). Under a
 checkpoint the HF directories give only their configs. The tokenizers come
 from the model directories where they hold one (else a ``SimpleTokenizer``
 of ``--max_vocab`` ids, or the grown one a checkpoint saved).
@@ -52,7 +53,7 @@ from .models.bert import BERT_PRESETS, BertConfig
 from .models.hf_import import (bert_config_from_hf, hf_generator_config,
                                load_hf_generator, load_hf_retriever,
                                pooling_for_model_name, read_config)
-from .models.lm import LMConfig, lm_init
+from .models.lm import DeepseekV2Config, LMConfig, lm_init
 from .models.lora import LoRAConfig, lora_init
 from .models.retriever import (DualEncoderRetriever, RetrieverConfig,
                                make_posterior)
@@ -71,6 +72,20 @@ LM_PRESETS = {
     # ~1B llama/mistral-geometry GQA generator
     "large": dict(hidden=2048, layers=16, heads=16, kv_heads=8,
                   intermediate=5632),
+}
+# deepseek_v2 geometries (``--generator_model_type deepseek*``): latent
+# attention and routed experts, DeepSeek-V2-Lite's YaRN (the config's
+# default); "large" is DeepSeek-V2-Lite's published widths and depth,
+# "tiny" a test size; no other ``--model_size`` names one
+DEEPSEEK_PRESETS = {
+    "tiny": dict(hidden=64, layers=3, heads=4, intermediate=128,
+                 kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8,
+                 v_head_dim=16, n_experts=8, experts_per_token=2,
+                 expert_intermediate=32, n_shared_experts=1),
+    "large": dict(hidden=2048, layers=27, heads=16, intermediate=10944,
+                  kv_lora_rank=512, qk_nope_dim=128, qk_rope_dim=64,
+                  v_head_dim=128, n_experts=64, experts_per_token=6,
+                  expert_intermediate=1408, n_shared_experts=2),
 }
 PRECISIONS = {"bf16": torch.bfloat16, "fp16": torch.float16,
               "fp32": torch.float32}
@@ -166,11 +181,22 @@ def load_or_initialize_model(opt: Options, store: PassageStore,
         bert=bert_cfg, tied=False,
         query_side_only=opt.query_side_retriever_training)
     if gen_dir is None:
-        preset = dict(LM_PRESETS[opt.model_size])
-        if "gpt" in opt.generator_model_type.lower():
-            preset.update(kv_heads=preset["heads"], arch="gpt2")
-        gen_cfg = LMConfig(vocab_size=generator_tok.vocab_size,
-                           dtype=PRECISIONS[opt.precision], **preset)
+        kind = opt.generator_model_type.lower()
+        make = LMConfig
+        if "deepseek" in kind:
+            if opt.model_size not in DEEPSEEK_PRESETS:
+                raise ValueError(
+                    f"--model_size {opt.model_size!r} names no deepseek_v2 "
+                    f"geometry: one of {sorted(DEEPSEEK_PRESETS)}")
+            make = DeepseekV2Config
+            preset = dict(DEEPSEEK_PRESETS[opt.model_size], rms_eps=1e-6)
+            preset["kv_heads"] = preset["heads"]
+        else:
+            preset = dict(LM_PRESETS[opt.model_size])
+            if "gpt" in kind:
+                preset.update(kv_heads=preset["heads"], arch="gpt2")
+        gen_cfg = make(vocab_size=generator_tok.vocab_size,
+                       dtype=PRECISIONS[opt.precision], **preset)
     elif restore:
         gen_cfg = _from_hf(hf_generator_config, gen_dir)
     else:

@@ -5,8 +5,9 @@ functions take a parsed ``config.json`` (a dict) where the JAX package reads
 a ``transformers`` config object, with the same fields and defaults
 (``num_key_value_heads`` falls back to ``num_attention_heads``,
 ``rope_theta`` to 10000, ``rms_norm_eps`` to 1e-5, ``tie_word_embeddings``
-to False). ``sliding_window`` is ignored in both packages: Mistral's window
-is 4,096 tokens, and no path here reaches that length, so full causal
+to False; deepseek_v2's, which the JAX package does not read, follow
+``DeepseekV2Config``). ``sliding_window`` is ignored in both packages:
+Mistral's window is 4,096 tokens, and no path here reaches that length, so full causal
 attention gives the same numbers. The ``import_*`` functions take a
 state-dict mapping and return numpy trees under the JAX key names and
 (in, out) layouts, every leaf float32 (``convert.py`` builds the port's
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 
 from .bert import BertConfig
-from .lm import LMConfig
+from .lm import DeepseekV2Config, LMConfig
 
 SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16,
                       "BF16": torch.bfloat16}
@@ -362,6 +363,100 @@ def import_gpt2(state_dict: Mapping, n_layers: int) -> dict:
     return p
 
 
+def deepseek_config_from_hf(cfg: dict, dtype=None) -> DeepseekV2Config:
+    """A ``deepseek_v2`` ``config.json`` -> the deepseek_v2 ``LMConfig``
+    (``DeepseekV2Config``'s defaults where a key is absent). What the port
+    does not compute raises: a query latent (``q_lora_rank``), routing
+    other than the greedy top-k of a softmax with its probabilities as the
+    weights (``norm_topk_prob`` false, ``routed_scaling_factor`` 1), MoE
+    layers other than every layer after the dense ones, no shared experts,
+    rope scaling other than YaRN. DeepSeek-V2-Lite is all of these."""
+    if cfg.get("q_lora_rank"):
+        raise ValueError("a query latent (q_lora_rank) is not supported")
+    if (cfg.get("topk_method", "greedy") != "greedy"
+            or cfg.get("scoring_func", "softmax") != "softmax"
+            or cfg.get("norm_topk_prob", False)
+            or float(cfg.get("routed_scaling_factor", 1.0)) != 1.0
+            or cfg.get("moe_layer_freq", 1) != 1
+            or not cfg.get("n_shared_experts")):
+        raise ValueError("only greedy softmax routing with unscaled, "
+                         "unrenormalised weights, in every layer after the "
+                         "dense ones and beside shared experts, is supported")
+    rs = cfg.get("rope_scaling") or {}
+    if rs.get("type", rs.get("rope_type")) != "yarn":
+        raise ValueError(f"rope scaling {rs!r}: only yarn is supported")
+    yarn = (float(rs["factor"]), int(rs["original_max_position_embeddings"]),
+            float(rs.get("beta_fast", 32)), float(rs.get("beta_slow", 1)),
+            float(rs.get("mscale", 1)), float(rs.get("mscale_all_dim", 0)))
+    heads = cfg["num_attention_heads"]
+    return DeepseekV2Config(
+        vocab_size=cfg["vocab_size"],
+        hidden=cfg["hidden_size"],
+        layers=cfg["num_hidden_layers"],
+        heads=heads,
+        kv_heads=heads,
+        intermediate=cfg["intermediate_size"],
+        rope_theta=float(cfg.get("rope_theta", 10000.0)),
+        rms_eps=cfg.get("rms_norm_eps", 1e-6),
+        tie_embeddings=cfg.get("tie_word_embeddings", False),
+        dtype=dtype if dtype is not None else torch.bfloat16,
+        kv_lora_rank=cfg["kv_lora_rank"],
+        qk_nope_dim=cfg["qk_nope_head_dim"],
+        qk_rope_dim=cfg["qk_rope_head_dim"],
+        v_head_dim=cfg["v_head_dim"],
+        n_experts=cfg["n_routed_experts"],
+        experts_per_token=cfg["num_experts_per_tok"],
+        expert_intermediate=cfg["moe_intermediate_size"],
+        n_shared_experts=cfg["n_shared_experts"],
+        first_dense_layers=cfg.get("first_k_dense_replace", 0),
+        yarn=yarn,
+    )
+
+
+def import_deepseek_v2(state_dict: Mapping, cfg: LMConfig) -> dict:
+    """An HF ``DeepseekV2ForCausalLM`` state dict -> the deepseek_v2 tree:
+    every linear weight (out, in) -> (in, out); each MoE layer's
+    ``mlp.experts.<e>.*_proj`` stacked into (E, in, out), its
+    ``mlp.gate.weight`` (E, H) -> ``router_w`` (H, E), its shared experts'
+    SwiGLU as ``shared_*``; the dense layers' ``mlp.*_proj`` as llama's.
+    The rope columns stay in HF's order (``lm.py::_mla_rope`` rotates the
+    interleaved pairs)."""
+    sd = state_dict
+
+    def w(name):
+        return _np_t(sd[name])
+
+    p = {"embed": _np(sd["model.embed_tokens.weight"]),
+         "final_norm": _np(sd["model.norm.weight"]), "layers": []}
+    for i in range(cfg.layers):
+        pre = f"model.layers.{i}."
+        att, mlp = pre + "self_attn.", pre + "mlp."
+        layer = {
+            "attn_norm": _np(sd[pre + "input_layernorm.weight"]),
+            "q_w": w(att + "q_proj.weight"),
+            "kv_a_w": w(att + "kv_a_proj_with_mqa.weight"),
+            "kv_norm": _np(sd[att + "kv_a_layernorm.weight"]),
+            "kv_b_w": w(att + "kv_b_proj.weight"),
+            "o_w": w(att + "o_proj.weight"),
+            "mlp_norm": _np(sd[pre + "post_attention_layernorm.weight"]),
+        }
+        for part in ("gate", "up", "down"):
+            if i < cfg.first_dense_layers:
+                layer[f"{part}_w"] = w(f"{mlp}{part}_proj.weight")
+                continue
+            layer[f"experts_{part}_w"] = np.stack(
+                [w(f"{mlp}experts.{e}.{part}_proj.weight")
+                 for e in range(cfg.n_experts)])
+            layer[f"shared_{part}_w"] = w(
+                f"{mlp}shared_experts.{part}_proj.weight")
+        if i >= cfg.first_dense_layers:
+            layer["router_w"] = w(mlp + "gate.weight")
+        p["layers"].append(layer)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = w("lm_head.weight")
+    return p
+
+
 # ------------------------------------------------------------- directories
 def load_hf_retriever(path: str, pooling: str):
     """-> (BertConfig, tower tree) from the HF directory ``path``."""
@@ -370,11 +465,13 @@ def load_hf_retriever(path: str, pooling: str):
 
 
 def hf_generator_config(path: str) -> LMConfig:
-    """The generator's config from ``path``'s ``config.json`` (gpt2 or the
-    llama family, by ``model_type``)."""
+    """The generator's config from ``path``'s ``config.json`` (gpt2,
+    deepseek_v2 or the llama family, by ``model_type``)."""
     cfg = read_config(path)
     if cfg.get("model_type") == "gpt2":
         return gpt2_config_from_hf(cfg)
+    if cfg.get("model_type") == "deepseek_v2":
+        return deepseek_config_from_hf(cfg)
     return lm_config_from_hf(cfg)
 
 
@@ -384,4 +481,6 @@ def load_hf_generator(path: str):
     sd = read_state_dict(path)
     if cfg.arch == "gpt2":
         return cfg, import_gpt2(sd, cfg.layers)
+    if cfg.arch == "deepseek_v2":
+        return cfg, import_deepseek_v2(sd, cfg)
     return cfg, import_causal_lm(sd, cfg.layers, cfg.tie_embeddings)

@@ -6,7 +6,8 @@ reader parses. ``bert_state_dict`` and ``gpt2_state_dict`` lay out a
 ``BertModel`` and a ``GPT2LMHeadModel`` state dict under HF's key names and
 layouts (``nn.Linear``'s (out, in) for BERT, ``Conv1D``'s (in, out) for
 gpt2, gpt2's head tied and absent) from an ``init`` of three functions
-``(w(*shape), ones(n), zeros(n))``; ``hf_init`` makes one from a
+``(w(*shape), ones(n), zeros(n))``; ``deepseek_v2_state_dict`` a
+``DeepseekV2ForCausalLM``'s (each routed expert its own ``nn.Linear``s); ``hf_init`` makes one from a
 ``torch.Generator`` at HF's ``initializer_range`` 0.02. ``write_hf_dir``
 writes ``config.json``.
 """
@@ -121,4 +122,42 @@ def gpt2_state_dict(c: dict, init) -> dict:
             pre + "mlp.c_proj.bias": zeros(h)})
     sd["transformer.ln_f.weight"] = ones(h)
     sd["transformer.ln_f.bias"] = zeros(h)
+    return sd
+
+
+def deepseek_v2_state_dict(c: dict, init) -> dict:
+    """A ``DeepseekV2ForCausalLM`` state dict of config ``c`` (HF's field
+    names, no query latent): ``nn.Linear``'s (out, in) layouts, the dense
+    MLP in the first ``first_k_dense_replace`` layers, then the router
+    (``mlp.gate``), every routed expert and the shared experts."""
+    w, ones, _ = init
+    h, v, nh = c["hidden_size"], c["vocab_size"], c["num_attention_heads"]
+    dn, dr, dv = (c["qk_nope_head_dim"], c["qk_rope_head_dim"],
+                  c["v_head_dim"])
+    r, e, f = c["kv_lora_rank"], c["n_routed_experts"], \
+        c["moe_intermediate_size"]
+    sd = {"model.embed_tokens.weight": w(v, h)}
+    for i in range(c["num_hidden_layers"]):
+        pre = f"model.layers.{i}."
+        att, mlp = pre + "self_attn.", pre + "mlp."
+        sd.update({
+            pre + "input_layernorm.weight": ones(h),
+            att + "q_proj.weight": w(nh * (dn + dr), h),
+            att + "kv_a_proj_with_mqa.weight": w(r + dr, h),
+            att + "kv_a_layernorm.weight": ones(r),
+            att + "kv_b_proj.weight": w(nh * (dn + dv), r),
+            att + "o_proj.weight": w(h, nh * dv),
+            pre + "post_attention_layernorm.weight": ones(h)})
+        if i < c.get("first_k_dense_replace", 0):
+            mlps = {mlp: c["intermediate_size"]}
+        else:
+            sd[mlp + "gate.weight"] = w(e, h)
+            mlps = {f"{mlp}experts.{j}.": f for j in range(e)}
+            mlps[mlp + "shared_experts."] = c["n_shared_experts"] * f
+        for p, width in mlps.items():
+            sd.update({p + "gate_proj.weight": w(width, h),
+                       p + "up_proj.weight": w(width, h),
+                       p + "down_proj.weight": w(h, width)})
+    sd["model.norm.weight"] = ones(h)
+    sd["lm_head.weight"] = w(v, h)
     return sd

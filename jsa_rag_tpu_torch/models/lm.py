@@ -1,7 +1,8 @@
-"""Decoder-only LM (llama/mistral-family and gpt2 geometry) for
-generation.
+"""Decoder-only LM (llama/mistral-family, gpt2 and deepseek_v2 geometry)
+for generation.
 
-Counterpart of ``jsa_rag_tpu/models/lm.py``, both architectures:
+Counterpart of ``jsa_rag_tpu/models/lm.py`` for the first two
+architectures; the third has no counterpart there:
 
 - llama/mistral: RMSNorm + rotary positions + grouped-query attention +
   SwiGLU; leaves ``embed``, ``final_norm``, ``lm_head`` (untied) and
@@ -12,7 +13,28 @@ Counterpart of ``jsa_rag_tpu/models/lm.py``, both architectures:
   attention, a tanh-gelu MLP and the head tied to the embedding; leaves
   ``embed``, ``pos_embed``, ``final_norm``, ``final_norm_b`` and
   ``layers.<i>.{ln1_s, ln1_b, qkv_w, qkv_b, o_w, o_b, ln2_s, ln2_b, fc_w,
-  fc_b, proj_w, proj_b}``.
+  fc_b, proj_w, proj_b}``;
+- deepseek_v2 (HF's ``modeling_deepseek.py``, DeepSeek-V2-Lite's shape;
+  its widths in ``DeepseekV2Config``): RMSNorm blocks of multi-head latent attention (MLA) without a query
+  latent, then a dense SwiGLU in the first ``first_dense_layers`` layers and
+  a mixture of experts in the rest; YaRN rotary on the 64-wide rope parts.
+  MLA: ``q = x q_w`` per head ``qk_nope_dim + qk_rope_dim`` wide; ``x
+  kv_a_w`` gives the KV latent (RMS-normed by ``kv_norm``, then ``kv_b_w``
+  to each head's ``qk_nope_dim`` key and ``v_head_dim`` value) and one rope
+  key that every head shares; rotary rotates DeepSeek's interleaved pairs
+  (HF views the rope part as (half, 2) and transposes before
+  ``rotate_half``; ``_mla_rope`` computes the same, in that output order, so
+  no weight column is permuted). The MoE layer routes every token in f32
+  (softmax over ``router_w``, top ``experts_per_token``, their
+  probabilities the weights), sorts the (token, slot) pairs by expert and runs each
+  of the gate, up and down products as one grouped product
+  (``torch._grouped_mm``) over the stacked experts ``experts_{gate, up,
+  down}_w`` (E, in, out), then adds the shared experts' SwiGLU
+  (``shared_{gate, up, down}_w``). Leaves ``embed``, ``final_norm``,
+  ``lm_head`` and ``layers.<i>.{attn_norm, q_w, kv_a_w, kv_norm, kv_b_w,
+  o_w, mlp_norm}`` with ``gate_w, up_w, down_w`` (dense) or ``router_w``
+  and the expert stacks (MoE). Decoding through a cache (which needs a
+  latent cache) is refused.
 
 One ``lm_logits`` forward serves CE and scoring; greedy and beam decoding
 run over preallocated KV caches (full MHA for gpt2). Plain functions on tensors
@@ -53,6 +75,7 @@ import torch.utils.checkpoint
 from ..parallel.sharding import (copy_to_group, gather_last_dim,
                                  reduce_from_group)
 from ..parallel import mesh
+from ..utils import trace
 from .bert import _layer_norm, dropout, split_seeds
 
 IGNORE_INDEX = -100  # label mask value, same constant as the reference
@@ -60,8 +83,13 @@ MATMUL_WEIGHTS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
 # gpt2's projections and their biases, cast to the activation dtype
 GPT2_WEIGHTS = ("qkv_w", "qkv_b", "o_w", "o_b", "fc_w", "fc_b", "proj_w",
                 "proj_b")
-CAST_LEAVES = frozenset(MATMUL_WEIGHTS + GPT2_WEIGHTS)
-ARCHS = ("llama", "gpt2")
+# deepseek_v2's 2-D projections and expert stacks; its router stays as
+# stored and is read in f32
+DEEPSEEK_WEIGHTS = ("kv_a_w", "kv_b_w", "experts_gate_w", "experts_up_w",
+                    "experts_down_w", "shared_gate_w", "shared_up_w",
+                    "shared_down_w")
+CAST_LEAVES = frozenset(MATMUL_WEIGHTS + GPT2_WEIGHTS + DEEPSEEK_WEIGHTS)
+ARCHS = ("llama", "gpt2", "deepseek_v2")
 GPT2_LN_EPS = 1e-5
 
 
@@ -84,18 +112,53 @@ class LMConfig:
 
     @property
     def head_dim(self) -> int:
+        """One head's width where queries, keys and values share it
+        (llama, gpt2); MLA's are ``qk_head_dim`` and ``v_head_dim``."""
         return self.hidden // self.heads
+
+    @property
+    def qk_head_dim(self) -> int:
+        """A query or key head's width."""
+        return self.head_dim
 
     @property
     def local_heads(self) -> tuple[int, int]:
         """(query heads, kv heads) of this rank's attention (gpt2: full
-        MHA, its fused qkv never split)."""
-        if self.arch == "gpt2":
+        MHA, its fused qkv never split; deepseek_v2: every head has its own
+        key, ``qk_head_dim`` wide, and value, ``v_head_dim`` wide, made
+        from the shared latent; never split)."""
+        if self.arch in ("gpt2", "deepseek_v2"):
             return self.heads, self.heads
         tp = _tp(self, "attn")
         if tp is not None:
             return self.heads // tp.size, self.kv_heads // tp.size
         return self.heads, self.kv_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepseekV2Config(LMConfig):
+    """The deepseek_v2 generator: ``LMConfig``'s fields (``intermediate``
+    is the dense layers' SwiGLU width, ``kv_heads`` equals ``heads``) and
+    MLA's widths, the experts and YaRN."""
+
+    arch: str = "deepseek_v2"
+    kv_lora_rank: int = 512  # the KV latent's width
+    qk_nope_dim: int = 128  # a query or key head's part without rotary
+    qk_rope_dim: int = 64  # its rotary part (the key's shared by all heads)
+    v_head_dim: int = 128
+    n_experts: int = 64  # routed experts of an MoE layer
+    experts_per_token: int = 6
+    expert_intermediate: int = 1408  # each routed expert's SwiGLU width
+    n_shared_experts: int = 2  # held as one SwiGLU, n x the expert width
+    first_dense_layers: int = 1  # leading layers with the dense SwiGLU
+    # YaRN: (factor, original max positions, beta_fast, beta_slow, mscale,
+    # mscale_all_dim); DeepSeek-V2-Lite's
+    yarn: tuple = (40.0, 4096, 32.0, 1.0, 0.707, 0.707)
+
+    @property
+    def qk_head_dim(self) -> int:
+        """MLA's query and key heads: the nope and rope parts."""
+        return self.qk_nope_dim + self.qk_rope_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +172,9 @@ class TensorParallelLMConfig(LMConfig):
 
 def with_tensor_parallel(cfg: LMConfig, tp) -> TensorParallelLMConfig:
     """``cfg`` for this rank's shards of the params, laid out as ``tp``."""
+    if cfg.arch == "deepseek_v2":
+        raise ValueError("tensor parallelism does not split the deepseek_v2 "
+                         "generator (latent attention and its experts)")
     return TensorParallelLMConfig(
         **{f.name: getattr(cfg, f.name)
            for f in dataclasses.fields(LMConfig)}, tp=tp)
@@ -130,6 +196,17 @@ def _row_out(y, tp):
 def _check_arch(cfg: LMConfig) -> None:
     if cfg.arch not in ARCHS:
         raise ValueError(f"generator arch {cfg.arch!r}: one of {ARCHS}")
+
+
+def _check_decodes(cfg: LMConfig) -> None:
+    """Decoding runs through a KV cache, which latent attention does not
+    have yet."""
+    _check_arch(cfg)
+    if cfg.arch == "deepseek_v2":
+        raise NotImplementedError(
+            "greedy and beam decoding of the deepseek_v2 generator need a "
+            "latent KV cache, which the port does not have yet; its "
+            "training and scoring (lm_loss, lm_logits) run")
 
 
 def lm_init(cfg: LMConfig, *, device, generator: torch.Generator) -> dict:
@@ -164,6 +241,11 @@ def lm_init(cfg: LMConfig, *, device, generator: torch.Generator) -> dict:
         return p  # the head is tied to the embedding
     p = {"embed": w((cfg.vocab_size, cfg.hidden)), "final_norm": ones(),
          "layers": []}
+    if cfg.arch == "deepseek_v2":
+        p["layers"] = [deepseek_layer_init(cfg, i, w, ones)
+                       for i in range(cfg.layers)]
+        p["lm_head"] = w((cfg.hidden, cfg.vocab_size))
+        return p
     for _ in range(cfg.layers):
         p["layers"].append({
             "attn_norm": ones(),
@@ -179,6 +261,37 @@ def lm_init(cfg: LMConfig, *, device, generator: torch.Generator) -> dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = w((cfg.hidden, cfg.vocab_size))
     return p
+
+
+def deepseek_shapes(cfg: LMConfig, i: int) -> list[tuple[str, tuple]]:
+    """(leaf, shape) of layer ``i``'s matrices and expert stacks, in the
+    order ``lm_init`` draws them."""
+    h, nh = cfg.hidden, cfg.heads
+    out = [("q_w", (h, nh * cfg.qk_head_dim)),
+           ("kv_a_w", (h, cfg.kv_lora_rank + cfg.qk_rope_dim)),
+           ("kv_b_w", (cfg.kv_lora_rank,
+                       nh * (cfg.qk_nope_dim + cfg.v_head_dim))),
+           ("o_w", (nh * cfg.v_head_dim, h))]
+    if i < cfg.first_dense_layers:
+        f = cfg.intermediate
+        return out + [("gate_w", (h, f)), ("up_w", (h, f)),
+                      ("down_w", (f, h))]
+    e, f = cfg.n_experts, cfg.expert_intermediate
+    fs = cfg.n_shared_experts * f
+    return out + [("router_w", (h, e)),
+                  ("experts_gate_w", (e, h, f)), ("experts_up_w", (e, h, f)),
+                  ("experts_down_w", (e, f, h)),
+                  ("shared_gate_w", (h, fs)), ("shared_up_w", (h, fs)),
+                  ("shared_down_w", (fs, h))]
+
+
+def deepseek_layer_init(cfg: LMConfig, i: int, w, ones) -> dict:
+    """Layer ``i`` of a deepseek_v2 tree: ``w(shape)`` for every matrix
+    and stack, ``ones(n)`` for the three norm scales."""
+    layer = {name: w(shape) for name, shape in deepseek_shapes(cfg, i)}
+    layer.update(attn_norm=ones(cfg.hidden), kv_norm=ones(cfg.kv_lora_rank),
+                 mlp_norm=ones(cfg.hidden))
+    return layer
 
 
 def _tied(cfg: LMConfig) -> bool:
@@ -200,6 +313,10 @@ def _cast_params(params: dict, cfg: LMConfig) -> dict:
     out["layers"] = [{k: (v.to(dt) if k in CAST_LEAVES else v)
                       for k, v in layer.items()}
                      for layer in params["layers"]]
+    for layer in out["layers"]:
+        if "adapters" in layer:  # unmerged expert adapters (models/lora.py)
+            layer["adapters"] = {n: (a.to(dt), b.to(dt), s)
+                                 for n, (a, b, s) in layer["adapters"].items()}
     return out
 
 
@@ -282,6 +399,172 @@ def _block(layer, cfg: LMConfig, x, positions, bias, cache=None,
                        positions, bias, cache, cache_len, seed)
     return x + _mlp(layer, _rms_norm(x, layer["mlp_norm"], cfg.rms_eps),
                     _tp(cfg, "mlp"))
+
+
+# ------------------------------------------------------------- deepseek_v2
+def yarn_get_mscale(scale: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1 * mscale * ln(scale) + 1`` (1 at no
+    scaling)."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def _yarn_correction_dim(rotations: float, dim: int, base: float,
+                         max_positions: int) -> float:
+    return (dim * math.log(max_positions / (rotations * 2 * math.pi))
+            / (2 * math.log(base)))
+
+
+def rope_inv_freq(cfg: LMConfig, device=None) -> torch.Tensor:
+    """The (qk_rope_dim / 2,) f32 inverse frequencies of MLA's rotary:
+    YaRN's (``DeepseekV2YarnRotaryEmbedding``) blend of the extrapolated
+    ``theta^(-2i/d)`` and the interpolated ``/ factor`` ones, by a linear
+    ramp over the correction range that ``beta_fast`` and ``beta_slow``
+    give."""
+    d = cfg.qk_rope_dim
+    exps = torch.arange(0, d, 2, dtype=torch.float32, device=device) / d
+    extra = 1.0 / (cfg.rope_theta ** exps)
+    factor, orig, beta_fast, beta_slow, _, _ = cfg.yarn
+    low = max(math.floor(_yarn_correction_dim(beta_fast, d, cfg.rope_theta,
+                                              orig)), 0)
+    high = min(math.ceil(_yarn_correction_dim(beta_slow, d, cfg.rope_theta,
+                                              orig)), d - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(d // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    keep = 1.0 - ramp  # 1: the extrapolated frequency, 0: the interpolated
+    return extra / factor * (1 - keep) + extra * keep
+
+
+def rope_mscale(cfg: LMConfig) -> float:
+    """YaRN's factor on cos and sin: m(mscale) / m(mscale_all_dim)."""
+    factor, _, _, _, mscale, mscale_all = cfg.yarn
+    return yarn_get_mscale(factor, mscale) / yarn_get_mscale(factor,
+                                                             mscale_all)
+
+
+def mla_softmax_scale(cfg: LMConfig) -> float:
+    """``qk_head_dim^-0.5 m(mscale_all_dim)^2``."""
+    m = yarn_get_mscale(cfg.yarn[0], cfg.yarn[5])
+    return cfg.qk_head_dim ** -0.5 * m * m
+
+
+def _mla_rotary(cfg: LMConfig, positions):
+    """(cos, sin), each (B, S, 1, qk_rope_dim / 2) f32, of the rotary
+    angles at ``positions``; once a forward, for every layer."""
+    ang = positions[..., None].to(torch.float32) * rope_inv_freq(
+        cfg, positions.device)
+    m = rope_mscale(cfg)
+    return (torch.cos(ang)[:, :, None] * m, torch.sin(ang)[:, :, None] * m)
+
+
+def _mla_rope(x, rot):
+    """DeepSeek's rotary of ``x`` (B, S, N, D): the pairs (x[2i], x[2i+1])
+    rotate by angle i; the output holds the evens' results, then the
+    odds' (HF's order after its transpose and ``rotate_half``)."""
+    cos, sin = rot
+    xf = x.to(torch.float32)
+    x1, x2 = xf[..., 0::2], xf[..., 1::2]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _mla_attention(layer, cfg: LMConfig, x, rot, bias, seed=None):
+    """Multi-head latent attention (``DeepseekV2Attention``, no query
+    latent): the keys' nope parts and the values from the normed latent,
+    one rope key for every head; logits summed in f32 from the nope and
+    rope products (the concatenated heads' dot product), scaled by
+    ``mla_softmax_scale``; f32 softmax cast to the activation dtype,
+    dropout on it as in llama's."""
+    with trace.span("mla.attention"):
+        b, s, _ = x.shape
+        nh, dn, dv = cfg.heads, cfg.qk_nope_dim, cfg.v_head_dim
+        r = cfg.kv_lora_rank
+        q = (x @ layer["q_w"]).reshape(b, s, nh, dn + cfg.qk_rope_dim)
+        ckv = x @ layer["kv_a_w"]
+        kv = (_rms_norm(ckv[..., :r], layer["kv_norm"], cfg.rms_eps)
+              @ layer["kv_b_w"]).reshape(b, s, nh, dn + dv)
+        q_pe = _mla_rope(q[..., dn:], rot)
+        k_pe = _mla_rope(ckv[..., None, r:], rot)[:, :, 0]
+        f32 = torch.float32
+        logits = (torch.einsum("bqnd,bknd->bnqk", q[..., :dn].to(f32),
+                               kv[..., :dn].to(f32))
+                  + torch.einsum("bqnd,bkd->bnqk", q_pe.to(f32),
+                                 k_pe.to(f32))) * mla_softmax_scale(cfg)
+        probs = torch.softmax(logits + bias, dim=-1).to(x.dtype)
+        probs = dropout(probs, cfg.dropout, seed)
+        ctx = torch.einsum("bnqk,bknd->bqnd", probs,
+                           kv[..., dn:]).reshape(b, s, nh * dv)
+        return ctx @ layer["o_w"]
+
+
+def route(h, router_w, k: int):
+    """The router (``MoEGate``, greedy, its probabilities not renormalised,
+    scaled by 1): softmax over ``h @ router_w`` in f32, the top ``k``
+    experts of each row -> (weights (T, k) f32, expert ids (T, k)
+    int64)."""
+    scores = torch.softmax(h.to(torch.float32) @ router_w.to(torch.float32),
+                           dim=-1)
+    return torch.topk(scores, k, dim=-1)
+
+
+def _grouped(x, layer, name: str, offs):
+    """Rows ``x`` sorted by expert through the stack ``layer[name]`` (E,
+    in, out) as one grouped product (expert e takes rows [offs[e-1],
+    offs[e])), plus its unmerged LoRA adapter, ``scale (x A_e) B_e``,
+    grouped alike, where ``models/lora.py`` left one."""
+    y = torch._grouped_mm(x, layer[name], offs=offs)
+    ad = layer.get("adapters", {}).get(name)
+    if ad is not None:
+        a, b, scale = ad
+        y = y + torch._grouped_mm(torch._grouped_mm(x, a, offs=offs), b,
+                                  offs=offs) * scale
+    return y
+
+
+def _swiglu(layer, x, prefix: str = ""):
+    g = x @ layer[prefix + "gate_w"]
+    return (torch.nn.functional.silu(g) * (x @ layer[prefix + "up_w"])) \
+        @ layer[prefix + "down_w"]
+
+
+def _moe(layer, cfg: LMConfig, x):
+    """An MoE layer (``DeepseekV2MoE``) over every position of ``x`` (B,
+    S, H): route, sort the (token, slot) pairs by expert (no host
+    synchronisation: the group offsets stay on the device), gather, the
+    grouped SwiGLU, back to (token, slot) order, the f32 sum weighted by
+    the router cast to ``x``'s dtype, plus the shared experts."""
+    b, s, hid = x.shape
+    h = x.reshape(b * s, hid)
+    k, e = cfg.experts_per_token, cfg.n_experts
+    with trace.span("moe.route"):
+        weights, ids = route(h, layer["router_w"], k)
+        flat = ids.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        counts = torch.zeros(e, dtype=torch.int64, device=x.device)
+        counts.scatter_add_(0, flat, torch.ones_like(flat))
+        offs = torch.cumsum(counts, 0).to(torch.int32)
+    with trace.span("moe.experts"):
+        xs = h[order // k]
+        g = _grouped(xs, layer, "experts_gate_w", offs)
+        u = _grouped(xs, layer, "experts_up_w", offs)
+        y = _grouped(torch.nn.functional.silu(g) * u, layer,
+                     "experts_down_w", offs)
+        y = y.new_empty(y.shape).index_copy(0, order, y)
+        routed = (y.view(b * s, k, hid).to(torch.float32)
+                  * weights[..., None]).sum(dim=1).to(x.dtype)
+    with trace.span("moe.shared"):
+        shared = _swiglu(layer, h, "shared_")
+    return (routed + shared).reshape(b, s, hid)
+
+
+def _deepseek_block(layer, cfg: LMConfig, x, rot, bias, seed=None):
+    x = x + _mla_attention(layer, cfg, _rms_norm(x, layer["attn_norm"],
+                                                 cfg.rms_eps),
+                           rot, bias, seed)
+    h = _rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
+    return x + (_moe(layer, cfg, h) if "router_w" in layer
+                else _swiglu(layer, h))
 
 
 def _gpt2_out(layer, cfg: LMConfig, ctx):
@@ -407,6 +690,10 @@ def _layer_fn(cfg: LMConfig):
         def block(layer, x, positions, bias, cache, cache_len, seeds):
             return _gpt2_block(layer, cfg, x, bias, cache, cache_len, seeds)
         return block, 3
+    if cfg.arch == "deepseek_v2":  # ``positions``: ``_mla_rotary``'s
+        def block(layer, x, positions, bias, cache, cache_len, seeds):
+            return _deepseek_block(layer, cfg, x, positions, bias, seeds[0])
+        return block, 1
 
     def block(layer, x, positions, bias, cache, cache_len, seeds):
         return _block(layer, cfg, x, positions, bias, cache, cache_len,
@@ -428,6 +715,8 @@ def _local_logits(params: dict, cfg: LMConfig, input_ids, attention_mask,
     keymask = attention_mask[:, None, None, :].bool()
     bias = torch.where(causal & keymask, 0.0, -1e9).to(torch.float32)
     block, per = _layer_fn(cfg)
+    if cfg.arch == "deepseek_v2":  # the rotary's angles, once a forward
+        positions = _mla_rotary(cfg, positions)
     # gpt2 drops out its embeddings first (embd_pdrop), then 3 per layer
     first = 1 if cfg.arch == "gpt2" else 0
     seeds = split_seeds(rng if cfg.dropout > 0.0 else None,
@@ -542,7 +831,7 @@ def greedy_generate(params: dict, cfg: LMConfig, input_ids, attention_mask,
     row's first tokens. The loop stops once every row has emitted EOS; the
     pad-initialised buffers make the outputs equal those of a full-length
     loop."""
-    _check_arch(cfg)
+    _check_decodes(cfg)
     p = _cast_params(params, cfg)  # once per call, not once per step
     b, prompt_len = input_ids.shape
     dev = input_ids.device
@@ -873,7 +1162,7 @@ def beam_generate(params: dict, cfg: LMConfig, input_ids, attention_mask,
     after); with ``return_logprobs`` also their (B, max_new_tokens) f32
     log-probs, each ``cand_score - run_score[src]`` (no second scoring
     forward), 0 in the pad tail."""
-    _check_arch(cfg)
+    _check_decodes(cfg)
     p = _cast_params(params, cfg)
     with torch.no_grad():
         out = _beam_search(p, cfg, input_ids, attention_mask,

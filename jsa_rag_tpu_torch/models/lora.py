@@ -5,6 +5,14 @@ mirrors the base tree at the targeted weight leaves,
 ``{"layers": [{name: {"A": (in, r), "B": (r, out)}}]}``, and ``lora_apply``
 materialises ``W + (alpha/rank) * A @ B`` with every base leaf detached (the
 JAX package's stop_gradient), so a backward pass reaches A and B only.
+
+A stacked leaf (deepseek_v2's routed experts, (E, in, out)) takes one
+adapter an expert, ``{"A": (E, in, r), "B": (E, r, out)}``, and stays
+unmerged: ``lora_apply`` leaves the stack as it is and hands the adapter to
+the forward under the layer's ``"adapters"`` key, which adds ``scale (x
+A_e) B_e`` to each expert's product (``models/lm.py::_grouped``). Merging
+would write a second copy of every expert and a full-shape gradient of it;
+the 2-D leaves of every architecture stay merged.
 """
 
 from __future__ import annotations
@@ -19,28 +27,36 @@ class LoRAConfig:
     rank: int = 8
     alpha: float = 16.0
     # the reference's llama/mistral targets (src/model_io.py:160-168) plus
-    # the gpt2 family's names; lora_init matches by presence
+    # the gpt2 family's names and deepseek_v2's leaves that peft's
+    # q/k/v/o/gate/up/down_proj names match (q_proj and o_proj of latent
+    # attention, which has no k_proj or v_proj; the dense MLP, the shared
+    # experts and every routed expert; not the router, ``mlp.gate``);
+    # lora_init matches by presence. The routed experts' stacks
+    # (experts_*) are applied unmerged, every other leaf merged
     targets: tuple[str, ...] = (
         "q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w",
         "qkv_w", "fc_w", "proj_w",
+        "shared_gate_w", "shared_up_w", "shared_down_w",
+        "experts_gate_w", "experts_up_w", "experts_down_w",
     )
 
 
 def lora_init(params: dict, cfg: LoRAConfig, *, generator: torch.Generator,
               device) -> dict:
-    """For each targeted 2-D leaf of ``params["layers"]``: A ~ 0.01 N(0, 1)
-    of (in, r) and B = 0 of (r, out), so the initial model is the base."""
+    """For each targeted leaf of ``params["layers"]``: A ~ 0.01 N(0, 1) of
+    (in, r) and B = 0 of (r, out), so the initial model is the base; a
+    stacked leaf (E, in, out) takes (E, in, r) and (E, r, out)."""
     tree: dict = {"layers": []}
     for layer in params["layers"]:
         entry = {}
         for name in cfg.targets:
             if name not in layer:
                 continue
-            w = layer[name]
+            *stack, n_in, n_out = layer[name].shape
             entry[name] = {
-                "A": 0.01 * torch.randn((w.shape[0], cfg.rank),
+                "A": 0.01 * torch.randn((*stack, n_in, cfg.rank),
                                         generator=generator, device=device),
-                "B": torch.zeros((cfg.rank, w.shape[1]), device=device),
+                "B": torch.zeros((*stack, cfg.rank, n_out), device=device),
             }
         tree["layers"].append(entry)
     return tree
@@ -53,7 +69,10 @@ def lora_apply(params: dict, lora: dict, cfg: LoRAConfig, *,
     unless ``train_base``. Under tensor parallelism (``tp``, the
     generator's ``TensorParallel``) a split leaf takes its rank's part of
     the delta: B's columns for a column-split W, A's rows for a row-split
-    one (the adapters' gradients are then partial sums over the group)."""
+    one (the adapters' gradients are then partial sums over the group). A
+    stacked leaf's adapter goes unmerged into the layer's ``"adapters"``
+    (``{name: (A, B, scale)}``), unless ``train_base`` (the export), which
+    merges every expert."""
     scale = cfg.alpha / cfg.rank
     keep = (lambda v: v) if train_base else (lambda v: v.detach())
     merged = {k: keep(v) for k, v in params.items() if k != "layers"}
@@ -63,6 +82,9 @@ def lora_apply(params: dict, lora: dict, cfg: LoRAConfig, *,
         for name, ab in entry.items():
             w = out[name]
             a, b = ab["A"], ab["B"]
+            if w.dim() == 3 and not train_base:
+                out.setdefault("adapters", {})[name] = (a, b, scale)
+                continue
             if tp is not None and b.shape[1] != w.shape[1]:
                 n = w.shape[1]
                 b = b[:, tp.rank * n:(tp.rank + 1) * n]

@@ -21,6 +21,12 @@ Spans, by where the work happens:
   ``step.reduce`` (several processes), ``step.update`` (clip and AdamW);
   inside the jsa loss ``jsa.towers``, ``jsa.generator``, ``jsa.mis``;
   ``dropout.mask`` at every dropout draw (``models/bert.py``);
+- in the deepseek_v2 generator (``models/lm.py``), a layer at a time:
+  ``mla.attention`` (the projections, the latent norm, the rotary, the
+  attention and ``o_proj``), ``moe.route`` (the router, the top-k, the
+  counts and the sort by expert), ``moe.experts`` (the gather, the grouped
+  products with their adapters, the weighted scatter back), ``moe.shared``
+  (the shared experts);
 - ``index.search``, ``index.shard_search`` (``index/flat.py``);
   ``mips.quantize``, ``mips.scan``, ``mips.merge``, ``mips.refine``
   (``ops/mips_topt.py::mips_topk_int8r_t``);
