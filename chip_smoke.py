@@ -22,8 +22,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    B9 ``mips_stream`` in ``mips_stream.cu``; B1-B5 and B9 score on the
    TMA + wgmma core of ``wgmma_scan.cuh``, s8 for B1 and B2; B6-B8 are
    instances of B3, B5 and B2 behind the row-major wrappers) from
-   ``csrc/``, one process per source, concurrently, and logs ptxas's
-   registers and spills;
+   ``csrc/``, one process per source, concurrently (phase 33's
+   ``bert_attention.cu`` beside them), and logs ptxas's registers and
+   spills;
 3. B1 against its plain version on the card, at the index-tile shapes the
    serve path gives it (d=1024, N=262,144 with 777 padded rows, B=64, 400
    candidates; and B=5, N=4099 with more candidates than valid rows);
@@ -374,9 +375,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     finite; every HF step rc 0; the round trip holds the saved index's 300
     rows (at fp16) and passages row for row, and its recall stays within
     0.02 of the saved index's.
+33. (run after phase 3) the BERT tower's fused attention
+    (``csrc/bert_attention.cu``, built here): held to the composed version
+    (``ops/bert_attention.py::_attention_plain``) at bge-large's heads
+    (nh 16, hd 64), B = 256, S = 192 and 256, ragged masks and one fully
+    masked passage, within 2^-7 max|v|; one layer's attention timed fused,
+    composed (``plain_ms``) and as PyTorch's
+    ``scaled_dot_product_attention`` (``library_ms``, a yardstick the port
+    never calls), each beside the bound (q, k, v read and the context
+    written once, or 4 B nh S^2 hd operations); then ``build_index`` of
+    256 synthetic passages through the bge-large passage tower (24 layers,
+    f32 weights, bf16 activations), fused against composed: its cls_norm
+    rows within 5.6e-3, and 24 launches in the fused build (the kernels
+    line's ``launches``).
 
 The last three lines are the card's name and power limit as nvidia-smi
-gives them, the ``kernels`` JSON object (B1-B9) and
+gives them, the ``kernels`` JSON object (B1-B9, bert_attention) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -5906,6 +5920,158 @@ def tools_phase(torch, mt, dev) -> dict:
     return out
 
 
+ATTN_SHAPES = ((256, 192), (256, 256))  # (B, S): the rebuild's buckets
+ATTN_HEADS, ATTN_HD = 16, 64                # bge-large
+ATTN_TOWER = dict(vocab_size=30522, hidden=1024, layers=24, heads=16,
+                  intermediate=4096)  # bge-large-en
+ATTN_TOWER_ERR = 5.6e-3  # tests/test_torch_cuda_attention.py's bound
+
+
+def attention_case(torch, g, dev, b: int, s: int):
+    """bge-large heads at (B, S): q, k, v as (B, S, nh, hd) views of bf16
+    (B, S, H) rows, the encoder's mask bias (ragged lengths in [S/2, S],
+    the last passage fully masked) and the same mask as SDPA's bool mask."""
+    h = ATTN_HEADS * ATTN_HD
+    q, k, v = (torch.randn((b, s, h), generator=g, device=dev)
+               .to(torch.bfloat16).reshape(b, s, ATTN_HEADS, ATTN_HD)
+               for _ in range(3))
+    lengths = torch.randint(s // 2, s + 1, (b,), generator=g, device=dev)
+    keep = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+    keep[-1] = False
+    bias = torch.where(keep[:, None, None, :], 0.0, -1e9).to(torch.float32)
+    return q, k, v, bias, keep[:, None, None, :]
+
+
+def attention_phase(torch, dev) -> dict:
+    """Phase 33: the BERT tower's fused attention against its composed
+    version, timed beside its bound and SDPA; then a bge-large index build,
+    fused against composed, with the kernel's launches."""
+    from jsa_rag_tpu_torch.data import PassageStore, SimpleTokenizer
+    from jsa_rag_tpu_torch.index import ShardedFlatIndex
+    from jsa_rag_tpu_torch.index.build import build_index, make_encode_fn
+    from jsa_rag_tpu_torch.models import bert
+    from jsa_rag_tpu_torch.models.retriever import (DualEncoderRetriever,
+                                                    RetrieverConfig)
+    from jsa_rag_tpu_torch.ops import _build
+    from jsa_rag_tpu_torch.ops import bert_attention as ba
+
+    t0 = time.perf_counter()
+    ba._lib()
+    log(f"[33] bert_attention ready in {time.perf_counter() - t0:.1f} s "
+        "(built in phase 2 when the smoke runs whole)")
+    for line in _build.build_log("bert_attention").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas bert_attention: {line.strip()}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=dev).manual_seed(SEED + 33)
+    shapes, max_err = {}, 0.0
+    for b, s in ATTN_SHAPES:
+        q, k, v, bias, keep = attention_case(torch, g, dev, b, s)
+        got = ba.bert_attention(q, k, v, bias)
+        want = ba._attention_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = 2.0 ** -7 * float(v.abs().max())
+        if not err <= tol:
+            raise AssertionError(f"bert_attention B={b} S={s}: max abs err "
+                                 f"{err} > {tol}")
+        max_err = max(max_err, err)
+        del got, want
+        h = ATTN_HEADS * ATTN_HD
+        bound_ms, by = bound(4 * b * s * h * 2 + b * s * 4,
+                             4 * b * ATTN_HEADS * s * s * ATTN_HD,
+                             PEAK_BF16_OPS_PER_S)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        row = {
+            "ms": cuda_ms(lambda: ba.bert_attention(q, k, v, bias), 20),
+            "plain_ms": cuda_ms(lambda: ba._attention_plain(q, k, v, bias),
+                                5),
+            "library_ms": cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=keep),
+                                  20),
+            "bound_ms": bound_ms, "bound_by": by,
+            "kv_resident": ba.kv_resident(s, ATTN_HD)}
+        row["roofline_pct"] = 100.0 * bound_ms / row["ms"]
+        shapes[s] = row
+        log(f"  B={b} S={s} H={h}: fused {row['ms']:.4f} ms, composed "
+            f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}; bound "
+            f"{bound_ms:.4f} ms ({by}), fused at "
+            f"{row['roofline_pct']:.1f}% of it; max abs err {err:.3g} "
+            f"(<= {tol:.3g})")
+        del q, k, v, bias, keep, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    # one batch of a bge-large index build (f32 weights, bf16 activations,
+    # as the rebuild runs it), fused, then again with the composed attention
+    b = ATTN_SHAPES[0][0]
+    cfg = RetrieverConfig(bert=bert.BertConfig(
+        **ATTN_TOWER, pooling="cls_norm", dtype=torch.bfloat16))
+    enc = bert.BertEncoder(cfg.bert, device=dev, generator=g)
+    encode = make_encode_fn(DualEncoderRetriever(
+        cfg, towers={"passage": enc, "query": enc}))
+    store = PassageStore.synthetic(b, seed=SEED)
+    tok = SimpleTokenizer(max_vocab=cfg.bert.vocab_size)
+    for text in store.texts():  # fixed ids for both builds
+        tok.tokenize(text)
+    rows = {}
+    for side in ("fused", "composed"):
+        e32 = torch.empty((b, cfg.bert.hidden), dtype=torch.float32,
+                          device=dev)
+        index = KeepFloats(ShardedFlatIndex(b, cfg.bert.hidden, device=dev),
+                           e32)
+        if side == "fused":
+            ba.bert_attention.launches = 0  # main path starts
+            build_index(index, store, encode, tok, batch_size=b,
+                        max_length=256)
+            torch.cuda.synchronize()
+            launches = ba.bert_attention.launches  # main path ends
+        else:
+            fused_attn = bert.bert_attention
+            bert.bert_attention = ba._attention_plain
+            try:
+                build_index(index, store, encode, tok, batch_size=b,
+                            max_length=256)
+            finally:
+                bert.bert_attention = fused_attn
+        rows[side] = e32
+    if launches != cfg.bert.layers:
+        raise AssertionError(f"bert_attention launched {launches} times in "
+                             f"a one-batch build, not {cfg.bert.layers}")
+    tower_err = float((rows["fused"] - rows["composed"]).abs().max())
+    if not tower_err <= ATTN_TOWER_ERR:
+        raise AssertionError(f"bge-large build fused against composed: max "
+                             f"abs err {tower_err} > {ATTN_TOWER_ERR}")
+    log(f"  bge-large build_index of {b} passages: {launches} launches; "
+        f"cls_norm rows fused against composed max abs err {tower_err:.3g} "
+        f"(<= {ATTN_TOWER_ERR})")
+    del enc, encode, rows, index, e32
+    torch.cuda.empty_cache()
+    head = shapes[ATTN_SHAPES[0][1]]
+    return {
+        "name": "bert_attention",
+        "route": "cuda",
+        "design": ("CUDA sm_90a, one warpgroup a (sequence, head): K and V "
+                   "staged whole by cp.async into the 128-byte swizzle, "
+                   "query tiles double-buffered, wgmma m64n64k16 for the "
+                   "logits and for P.V (P from registers), online softmax "
+                   "in f32"),
+        "source": "jsa_rag_tpu_torch/csrc/bert_attention.cu",
+        "replaces": ("none: jsa_rag_tpu/models/bert.py's attention is plain "
+                     "XLA"),
+        "launches": launches,
+        "launches_on": f"build_index of {b} passages, bge-large, bf16",
+        "max_abs_err": max_err,
+        "tower_max_abs_err": tower_err,
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "shape": {"B": ATTN_SHAPES[0][0], "S": ATTN_SHAPES[0][1],
+                  "nh": ATTN_HEADS, "hd": ATTN_HD},
+        "at_S": {str(k): v for k, v in shapes.items()},
+    }
+
+
 def row_kernels(bp: dict, errs: dict) -> list:
     """B6's-B9's entries of the kernels line from phases 19 and 20, each
     beside the bench line that drove it."""
@@ -5987,9 +6153,11 @@ def main() -> None:
     from jsa_rag_tpu_torch.ops import mips_topt as mt
 
     t0 = time.perf_counter()
+    # phase 33's source beside the scans', each in its own nvcc at once
+    built = _build.load_libraries((*mt.KERNELS, "bert_attention"))
     mt._kernel_libs()
     _PHASE_T[0] = time.perf_counter()
-    log(f"[2] built {', '.join(mt.KERNELS)} in "
+    log(f"[2] built {', '.join(built)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name in mt.KERNELS:
         for line in _build.build_log(name).splitlines():
@@ -6012,6 +6180,9 @@ def main() -> None:
         max_err = max(max_err, compare_int8r(
             mt, args, f"B={b} N={n} valid={nv} k_sel={k_sel} T={t}"))
         del v1, s1
+    torch.cuda.empty_cache()
+    attn = attention_phase(torch, dev)
+    phase_done("33")
     torch.cuda.empty_cache()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -6200,7 +6371,7 @@ def main() -> None:
                                       for k, v in PHASE_S.items()))
     log(f"smoke took {time.perf_counter() - t_start:.0f} s")
     log(smi)
-    log(json.dumps({"kernels": [b1, b3, b2, b4, b5, *rows]}))
+    log(json.dumps({"kernels": [b1, b3, b2, b4, b5, *rows, attn]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,18 +20,23 @@ package splits its key; a forward without ``rng`` is deterministic.
 ``cfg.remat`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``); the seeds
 travel into the checkpointed call, so the recomputation draws the same masks.
+
+Attention: on a CUDA device, a bf16 or fp16 forward that records no gradient
+and draws no dropout (an index build's passage tower, served and evaluated
+queries) runs one hand-written kernel a layer (``ops/bert_attention.py``);
+every other forward takes the composed ``_attention_plain``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from ..ops.bert_attention import _attention_plain, bert_attention
 from ..utils import trace
 
 # geometry presets, copied from jsa_rag_tpu/model_io.py:35-43
@@ -152,12 +157,15 @@ class BertLayer(nn.Module):
         q = proj(self.q_w, self.q_b)
         k = proj(self.k_w, self.k_b)
         v = proj(self.v_w, self.v_b)
-        # f32 logits: exact products of the activation dtype, f32 sums
-        logits = torch.einsum("bqnd,bknd->bnqk", q.to(torch.float32),
-                              k.to(torch.float32)) / math.sqrt(hd)
-        probs = torch.softmax(logits + bias, dim=-1).to(x.dtype)
-        probs = dropout(probs, cfg.dropout, seed)  # attention-probs dropout
-        ctx = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(b, s, h)
+        # the fused kernel where nothing records a gradient or draws dropout
+        if (x.is_cuda and seed is None
+                and x.dtype in (torch.bfloat16, torch.float16)
+                and not (q.requires_grad or k.requires_grad
+                         or v.requires_grad)):
+            ctx = bert_attention(q, k, v, bias)
+        else:
+            ctx = _attention_plain(
+                q, k, v, bias, lambda p: dropout(p, cfg.dropout, seed))
         return ctx @ self.o_w.to(x.dtype) + self.o_b.to(x.dtype)
 
     def _ffn(self, x):
